@@ -1,0 +1,305 @@
+"""Configuration tree for the PyTorch port (a copy of ``ppn_tpu/configs/base.py``).
+
+The port keeps its own copy instead of importing the JAX package: the two
+packages share the channel layout, the thresholds and the named configs, and
+the tests hold them equal. Only the train/data fields that batched inference
+and the synthetic PCKh protocol read are carried over; the training slice
+adds the rest.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+# Class index 0 is always the "instance" pseudo-class (whole-person box).
+MPII_KEYPOINT_NAMES: Tuple[str, ...] = (
+    "instance",
+    "head_top",
+    "upper_neck",
+    "thorax",
+    "r_shoulder",
+    "r_elbow",
+    "r_wrist",
+    "l_shoulder",
+    "l_elbow",
+    "l_wrist",
+    "pelvis",
+    "r_hip",
+    "r_knee",
+    "r_ankle",
+    "l_hip",
+    "l_knee",
+    "l_ankle",
+)
+
+# Directed limb tree rooted at `instance`, topologically ordered so greedy
+# person assembly (ops/parse.py) can walk it front-to-back. L = 16.
+MPII_EDGES: Tuple[Tuple[int, int], ...] = (
+    (0, 3),   # instance    -> thorax
+    (3, 2),   # thorax      -> upper_neck
+    (2, 1),   # upper_neck  -> head_top
+    (3, 4),   # thorax      -> r_shoulder
+    (4, 5),   # r_shoulder  -> r_elbow
+    (5, 6),   # r_elbow     -> r_wrist
+    (3, 7),   # thorax      -> l_shoulder
+    (7, 8),   # l_shoulder  -> l_elbow
+    (8, 9),   # l_elbow     -> l_wrist
+    (3, 10),  # thorax      -> pelvis
+    (10, 11), # pelvis      -> r_hip
+    (11, 12), # r_hip       -> r_knee
+    (12, 13), # r_knee      -> r_ankle
+    (10, 14), # pelvis      -> l_hip
+    (14, 15), # l_hip       -> l_knee
+    (15, 16), # l_knee      -> l_ankle
+)
+
+# Left/right class-index pairs swapped on horizontal flip.
+MPII_FLIP_PAIRS: Tuple[Tuple[int, int], ...] = (
+    (4, 7), (5, 8), (6, 9), (11, 14), (12, 15), (13, 16),
+)
+
+COCO_KEYPOINT_NAMES: Tuple[str, ...] = (
+    "instance",
+    "nose",
+    "l_eye",
+    "r_eye",
+    "l_ear",
+    "r_ear",
+    "l_shoulder",
+    "r_shoulder",
+    "l_elbow",
+    "r_elbow",
+    "l_wrist",
+    "r_wrist",
+    "l_hip",
+    "r_hip",
+    "l_knee",
+    "r_knee",
+    "l_ankle",
+    "r_ankle",
+)
+
+COCO_EDGES: Tuple[Tuple[int, int], ...] = (
+    (0, 1),   # instance -> nose
+    (1, 2),   # nose -> l_eye
+    (1, 3),   # nose -> r_eye
+    (2, 4),   # l_eye -> l_ear
+    (3, 5),   # r_eye -> r_ear
+    (0, 6),   # instance -> l_shoulder
+    (6, 8),   # l_shoulder -> l_elbow
+    (8, 10),  # l_elbow -> l_wrist
+    (0, 7),   # instance -> r_shoulder
+    (7, 9),   # r_shoulder -> r_elbow
+    (9, 11),  # r_elbow -> r_wrist
+    (0, 12),  # instance -> l_hip
+    (12, 14), # l_hip -> l_knee
+    (14, 16), # l_knee -> l_ankle
+    (0, 13),  # instance -> r_hip
+    (13, 15), # r_hip -> r_knee
+    (15, 17), # r_knee -> r_ankle
+)
+
+COCO_FLIP_PAIRS: Tuple[Tuple[int, int], ...] = (
+    (2, 3), (4, 5), (6, 7), (8, 9), (10, 11), (12, 13), (14, 15), (16, 17),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class PPNConfig:
+    """Model/problem config: geometry, loss weights and post-process
+    thresholds."""
+
+    keypoint_names: Tuple[str, ...] = MPII_KEYPOINT_NAMES
+    edges: Tuple[Tuple[int, int], ...] = MPII_EDGES
+    flip_pairs: Tuple[Tuple[int, int], ...] = MPII_FLIP_PAIRS
+
+    # Image / grid geometry. insize must be divisible by the backbone stride.
+    insize: Tuple[int, int] = (384, 384)       # (H, W) network input
+    outsize: Tuple[int, int] = (12, 12)        # (H', W') proposal grid
+    local_grid_size: Tuple[int, int] = (9, 9)  # (H_l, W_l) limb search window
+
+    # Box construction.
+    instance_scale: float = 1.0
+    parts_scale: float = 0.2
+
+    # Loss weights.
+    lambda_resp: float = 0.25
+    lambda_iou: float = 1.0
+    lambda_coor: float = 5.0
+    lambda_size: float = 5.0
+    lambda_limb: float = 0.5
+
+    # Post-processing thresholds.
+    detection_thresh: float = 0.15
+    nms_thresh: float = 0.3
+    min_num_keypoints: int = 2
+    max_instances: int = 32   # static top-P person slots
+
+    # Size channels: "sigmoid" keeps w,h in (0,1) of image size; "exp" is
+    # the YOLOv2-style alternative.
+    size_activation: str = "sigmoid"
+
+    # Limb-loss masking ("paired" or "all"), read by the training slice.
+    limb_loss_mode: str = "paired"
+
+    backbone: str = "resnet18"
+
+    # ---- derived ----
+    @property
+    def num_keypoints(self) -> int:
+        """K — true keypoints, excluding the instance pseudo-class."""
+        return len(self.keypoint_names) - 1
+
+    @property
+    def num_classes(self) -> int:
+        """K+1 — keypoints + instance."""
+        return len(self.keypoint_names)
+
+    @property
+    def num_limbs(self) -> int:
+        return len(self.edges)
+
+    @property
+    def stride(self) -> Tuple[float, float]:
+        """(sy, sx) pixels per grid cell."""
+        return (self.insize[0] / self.outsize[0],
+                self.insize[1] / self.outsize[1])
+
+    @property
+    def num_box_channels(self) -> int:
+        return 6 * self.num_classes
+
+    @property
+    def num_limb_channels(self) -> int:
+        hl, wl = self.local_grid_size
+        return self.num_limbs * hl * wl
+
+    @property
+    def num_channels(self) -> int:
+        """Head output channels: 6(K+1) + H_l·W_l·L."""
+        return self.num_box_channels + self.num_limb_channels
+
+    def __post_init__(self):
+        if self.keypoint_names[0] != "instance":
+            raise ValueError("class 0 must be the 'instance' pseudo-class")
+        hl, wl = self.local_grid_size
+        if hl % 2 == 0 or wl % 2 == 0:
+            raise ValueError("local_grid_size must be odd")
+        seen = {0}
+        k1 = self.num_classes
+        for s, d in self.edges:
+            if not (0 <= s < k1 and 0 < d < k1):
+                raise ValueError(
+                    f"edge ({s},{d}) out of range for {k1} classes — "
+                    "when overriding keypoint_names, override edges (and "
+                    "flip_pairs) consistently")
+            if s not in seen:
+                raise ValueError(
+                    f"edges must be topologically ordered from instance; "
+                    f"edge ({s},{d}) has unseen source")
+            seen.add(d)
+        for a, b in self.flip_pairs:
+            if not (0 < a < k1 and 0 < b < k1):
+                raise ValueError(f"flip pair ({a},{b}) out of range")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training fields inference reads."""
+
+    batch_size: int = 32              # also the default eval batch bound
+    dtype: str = "bfloat16"           # compute dtype; params stay float32
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The dataset fields the synthetic protocol reads."""
+
+    max_persons: int = 12              # static GT slots per image
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: PPNConfig = PPNConfig()
+    train: TrainConfig = TrainConfig()
+    data: DataConfig = DataConfig()
+    name: str = "mpii_r18_384"
+
+
+# ---------------------------------------------------------------------------
+# Named configs.
+# ---------------------------------------------------------------------------
+
+def mpii_r18_384() -> Config:
+    """MPII, ResNet-18, 384×384, 12×12 grid."""
+    return Config(name="mpii_r18_384")
+
+
+def coco_r18_384() -> Config:
+    """COCO multi-person (K=17, L=17)."""
+    return Config(
+        name="coco_r18_384",
+        model=PPNConfig(
+            keypoint_names=COCO_KEYPOINT_NAMES,
+            edges=COCO_EDGES,
+            flip_pairs=COCO_FLIP_PAIRS,
+        ),
+    )
+
+
+def coco_r18_384_crowded() -> Config:
+    """Crowded-scene operating point: nms 0.6, det 0.02. Model shapes are
+    identical to coco_r18_384, so snapshots interchange."""
+    base = coco_r18_384()
+    return dataclasses.replace(
+        base, name="coco_r18_384_crowded",
+        model=dataclasses.replace(base.model, detection_thresh=0.02,
+                                  nms_thresh=0.6))
+
+
+def mpii_r50_384() -> Config:
+    """ResNet-50 bottleneck variant."""
+    return Config(
+        name="mpii_r50_384",
+        model=PPNConfig(backbone="resnet50"),
+    )
+
+
+def mpii_r18_224_fast() -> Config:
+    """Low-latency variant for the streaming-video path."""
+    return Config(
+        name="mpii_r18_224_fast",
+        model=PPNConfig(insize=(224, 224), outsize=(7, 7)),
+    )
+
+
+def tiny_test() -> Config:
+    """Small config for unit tests / CPU: 64×64 input, 2×2 grid, 3×3 window."""
+    return Config(
+        name="tiny_test",
+        model=PPNConfig(insize=(64, 64), outsize=(2, 2), local_grid_size=(3, 3),
+                        max_instances=4),
+        train=TrainConfig(batch_size=2),
+        data=DataConfig(max_persons=3),
+    )
+
+
+_REGISTRY = {
+    "mpii_r18_384": mpii_r18_384,
+    "mpii_r50_384": mpii_r50_384,
+    "coco_r18_384": coco_r18_384,
+    "coco_r18_384_crowded": coco_r18_384_crowded,
+    "mpii_r18_224_fast": mpii_r18_224_fast,
+    "tiny_test": tiny_test,
+}
+
+
+def get_config(name: str, **overrides) -> Config:
+    """Look up a named config; `overrides` apply to the top-level Config."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown config {name!r}; have {sorted(_REGISTRY)}")
+    cfg = _REGISTRY[name]()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg

@@ -1,0 +1,89 @@
+"""The port stands alone: no file of ppn_tpu_torch/ and not chip_smoke.py
+imports jax, flax or the JAX package, and the entry points run on CUDA
+unless the caller asks for the CPU — without a GPU they raise instead of
+falling back."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ppn_tpu")
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "ppn_tpu_torch")
+    tools = os.path.join(ROOT, "tools")
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(tools, n) for n in os.listdir(tools)
+        if n.startswith("torch_") and n.endswith(".py")]
+    for d, _, names in os.walk(pkg):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.inference import Predictor
+    from ppn_tpu_torch.nn.model import PoseProposalNet
+    from ppn_tpu_torch.ops.postprocess import forward_postprocess_fast
+    from ppn_tpu_torch.utils.params_io import load_inference_npz
+
+    cfg = get_config("tiny_test")
+    model = PoseProposalNet(cfg.model)
+    images = np.zeros((1, *cfg.model.insize, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(cfg, model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forward_postprocess_fast(cfg.model, model, images)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_inference_npz(
+            get_config("mpii_r18_384"),
+            os.path.join(ROOT, "artifacts", "mpii_hero_r5_ema_f16.npz"))
+    # asked for explicitly, the CPU works
+    ppl = Predictor(cfg, model, device="cpu").predict(images)
+    assert ppl.kp_cell.shape == (1, cfg.model.max_instances,
+                                 cfg.model.num_classes, 2)
+
+
+def test_chip_smoke_fails_without_cuda(no_cuda, capsys):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main() != 0
+    assert '"ok"' not in capsys.readouterr().out
