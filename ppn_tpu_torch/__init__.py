@@ -1,9 +1,12 @@
 """ppn_tpu_torch — the Pose Proposal Network in PyTorch for NVIDIA Hopper.
 
-A port of ``ppn_tpu`` (JAX/Pallas on a TPU) that imports nothing of it. The
-main path is batched inference: uint8 images → ResNet trunk + PPN head
-(cuDNN convs) → one fused post-process CUDA kernel → fixed-shape ``People``.
-Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``.
+A port of ``ppn_tpu`` (JAX/Pallas on a TPU) that imports nothing of it. Its
+paths: batched inference (uint8 images → ResNet trunk + PPN head, cuDNN
+convs → one fused post-process CUDA kernel → fixed-shape ``People``) and
+training (on-device augmentation through an affine-warp CUDA kernel →
+target encoding → bf16 forward/backward → SGD + EMA, checkpoints, PCKh
+eval through the post-process kernel). Entry points run on ``cuda`` unless
+the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Host input pipeline: dataset → fixed-shape numpy batches (port of
-``ppn_tpu/data/pipeline.py`` ``collate`` and ``epoch_batches``)."""
+``ppn_tpu/data/pipeline.py`` ``collate``, ``epoch_batches`` and
+``infinite_batches``)."""
 
 from __future__ import annotations
 
@@ -47,3 +48,26 @@ def epoch_batches(dataset, batch_size: int, *, rng: np.random.Generator,
     for i in range(0, stop, batch_size):
         yield collate([dataset[int(j)] for j in idx[i:i + batch_size]],
                       image_uint8=image_uint8)
+
+
+def infinite_batches(dataset, batch_size: int, *, seed: int = 0,
+                     shuffle: bool = True, image_uint8: bool = False
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless stream of epochs (the train-loop feed).
+
+    Datasets smaller than the batch are sampled with replacement (the
+    overfit path), instead of drop_remainder yielding zero batches.
+    """
+    epoch = 0
+    small = len(dataset) < batch_size
+    while True:
+        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
+        if small:
+            idx = rng.choice(len(dataset), size=batch_size, replace=True)
+            yield collate([dataset[int(j)] for j in idx],
+                          image_uint8=image_uint8)
+        else:
+            yield from epoch_batches(dataset, batch_size, rng=rng,
+                                     shuffle=shuffle,
+                                     image_uint8=image_uint8)
+        epoch += 1

@@ -2,9 +2,9 @@
 ``ppn_tpu/data/synthetic.py``).
 
 Pure numpy and deterministic per (seed, index): the same pixels and GT as
-the JAX package's generator, which the tests check. The on-disk render cache
-of the JAX package (``materialize_collated``) is a training feed and comes
-with the training slice.
+the JAX package's generator, which the tests check. The JAX package's
+on-disk render cache (``materialize_collated``) is not carried over: it only
+shortens the set-up of large synthetic runs.
 """
 
 from __future__ import annotations

@@ -21,6 +21,8 @@ from ppn_tpu_torch.nn.resnet import Conv, ConvBN, resnet18, resnet34, resnet50
 
 _BACKBONES = {"resnet18": resnet18, "resnet34": resnet34,
               "resnet50": resnet50}
+# TrainConfig.dtype → compute dtype
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class PPNHead(nn.Module):

@@ -44,16 +44,19 @@ def pad_same(x: torch.Tensor, k: int, s: int, value: float = 0.0):
 class Conv(nn.Module):
     """Bias-optional conv with ``SAME`` padding, computed in ``dtype``.
 
-    ``weight`` is OIHW f32; the bias (the head's 1×1 only) is added after
-    the conv in ``dtype``, as ``nnx.Conv`` does, not inside the cuDNN
-    epilogue."""
+    ``weight`` is OIHW f32, initialized as ``nnx.Conv`` does (LeCun normal:
+    a normal truncated at ±2σ, scaled to variance 1/fan_in); the bias (the
+    head's 1×1 only) is added after the conv in ``dtype``, as ``nnx.Conv``
+    does, not inside the cuDNN epilogue."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  bias: bool = False, dtype=torch.bfloat16):
         super().__init__()
         self.kernel, self.stride, self.dtype = kernel, stride, dtype
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
-        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+        # the std of a unit normal truncated at ±2 is 0.8796
+        std = (cin * kernel * kernel) ** -0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std)
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -66,12 +69,23 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over channel dim 1 with running statistics
-    (Flax ``momentum=0.9`` / ``eps=1e-5``; batch statistics are the training
-    slice's).
+    """BatchNorm over channel dim 1, as ``nnx.BatchNorm(momentum=0.9,
+    epsilon=1e-5)`` computes it in Flax 0.12; ``train()``/``eval()`` switch
+    between batch and running statistics.
 
-    Every operand is cast to ``dtype`` first and each step rounds there,
-    in Flax's order: ``(x - mean) · (rsqrt(var + eps) · scale) + bias``."""
+    Eval: every operand is cast to ``dtype`` first and each step rounds
+    there, in Flax's order: ``(x - mean) · (rsqrt(var + eps) · scale) +
+    bias``.
+
+    Training: the statistics are taken over N, H, W in f32 from the input
+    rounded to ``dtype``, with the fast variance ``E[x²] − E[x]²`` clipped
+    at 0. The running update is ``0.9·running + 0.1·batch`` with that
+    biased variance (``torch.nn.BatchNorm2d`` would use the unbiased one).
+    Flax then normalizes in f32, the ``dtype`` input, scale and bias
+    promoted against the f32 statistics, and rounds once to ``dtype``.
+    Gradients flow through the batch statistics."""
+
+    momentum = 0.9
 
     def __init__(self, c: int, eps: float = 1e-5, dtype=torch.bfloat16):
         super().__init__()
@@ -83,6 +97,20 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.training:
+            xf = x.to(dt).float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min(
+                torch.square(xf).mean(dim=(0, 2, 3)) - torch.square(mean),
+                0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(
+                    m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            mul = torch.rsqrt(var + self.eps) * self.weight.to(dt).float()
+            y = (xf - mean[:, None, None]) * mul[:, None, None]
+            return (y + self.bias.to(dt).float()[:, None, None]).to(dt)
         mean = self.running_mean.to(dt)[:, None, None]
         mul = torch.rsqrt(self.running_var.to(dt) + self.eps)
         mul = (mul * self.weight.to(dt))[:, None, None]

@@ -6,6 +6,26 @@ from __future__ import annotations
 import torch
 
 
+def iou_cxcywh(a: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-9) -> torch.Tensor:
+    """Elementwise IoU of broadcast-compatible center-format boxes, in the
+    JAX function's operation order (the loss's confidence target)."""
+    ax0 = a[..., 0] - a[..., 2] / 2
+    ay0 = a[..., 1] - a[..., 3] / 2
+    ax1 = a[..., 0] + a[..., 2] / 2
+    ay1 = a[..., 1] + a[..., 3] / 2
+    bx0 = b[..., 0] - b[..., 2] / 2
+    by0 = b[..., 1] - b[..., 3] / 2
+    bx1 = b[..., 0] + b[..., 2] / 2
+    by1 = b[..., 1] + b[..., 3] / 2
+
+    iw = torch.clamp_min(torch.minimum(ax1, bx1) - torch.maximum(ax0, bx0), 0.0)
+    ih = torch.clamp_min(torch.minimum(ay1, by1) - torch.maximum(ay0, by0), 0.0)
+    inter = iw * ih
+    union = (ax1 - ax0) * (ay1 - ay0) + (bx1 - bx0) * (by1 - by0) - inter
+    return inter / torch.clamp_min(union, eps)
+
+
 def pairwise_overlap_above_cxcywh(a: torch.Tensor, b: torch.Tensor,
                                   thresh: float,
                                   eps: float = 1e-9) -> torch.Tensor:

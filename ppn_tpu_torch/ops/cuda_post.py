@@ -2,35 +2,24 @@
 fused post-process on Hopper that replaces the two TPU Pallas kernels
 ``ppn_tpu/ops/pallas_post.py`` and ``ppn_tpu/ops/pallas_post_packed.py``.
 
-The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface at first use (``build/ppn_tpu_torch/libppn_post.so``) and
-loaded with ctypes. The kernel launches on the current PyTorch stream; the
-wrapper allocates the outputs and raises on any CUDA error. Nothing here
-runs on a CPU tensor: ``ops/postprocess.py`` sends those to the plain
-version.
+The source is compiled by ``nvcc`` for ``sm_90a`` at first use
+(``ops/cuda_build.py``) and loaded with ctypes. The kernel launches on the
+current PyTorch stream; the wrapper allocates the outputs and raises on any
+CUDA error. Nothing here runs on a CPU tensor: ``ops/postprocess.py`` sends
+those to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ppn_tpu_torch.configs import PPNConfig
+from ppn_tpu_torch.ops import cuda_build
 from ppn_tpu_torch.ops.parse import People
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "post.cu"
-LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "ppn_tpu_torch"
-            / "libppn_post.so")
-# --fmad=false keeps every decision product and sum rounded on its own, as
-# in the plain version; no fast math (σ uses the full-precision expf).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-              "-fPIC")
+SOURCE = "post.cu"
 
 # Launches of ppn_post_kernel in this process (one per wrapper call).
 LAUNCHES = 0
@@ -38,37 +27,16 @@ LAUNCHES = 0
 _lib = None
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError(f"nvcc not found (looked on PATH and in {home})")
-    return path
-
-
 def build(force: bool = False) -> str:
-    """Compile ``post.cu`` unless the library is newer than the source.
-    Returns nvcc's report (ptxas registers and shared memory), or "" when
-    the library was already up to date."""
-    if (not force and LIB_PATH.exists()
-            and LIB_PATH.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return ""
-    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    os.replace(tmp, LIB_PATH)   # atomic: no process loads a half-written .so
-    return proc.stdout + proc.stderr
+    """Compile ``post.cu`` unless its library is up to date. Returns nvcc's
+    report (ptxas registers and shared memory), or "" when it was."""
+    return cuda_build.build([SOURCE], force)[SOURCE]
 
 
 def _load():
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(LIB_PATH))
+        lib = cuda_build.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ppn_post_launch.argtypes = (
             [p] * 7 + [i] * 10 + [f] * 6 + [i, i, p, p])

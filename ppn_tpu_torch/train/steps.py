@@ -1,0 +1,225 @@
+"""Train and eval steps (port of ``ppn_tpu/train/steps.py``).
+
+One ``train_step`` is: on-device augmentation (one ``ppn_warp_kernel``
+launch) → target encoding → forward in ``cfg.train.dtype`` with f32
+parameters and training-mode BatchNorm → the 5-term loss → backward → SGD
+with momentum and masked weight decay → EMA of the parameters.
+
+The optimizer is written out instead of ``torch.optim.SGD`` so that it
+follows optax's ``chain(add_decayed_weights(wd, mask), sgd(lr, 0.9))``
+term by term: ``g ← g + wd·p`` on parameters with ``ndim > 1`` only,
+``trace ← g + 0.9·trace``, ``p ← p + (−lr)·trace``, with ``lr`` the
+schedule at the number of steps already taken (0 on the first step under
+warmup). The multi-step ``lax.scan`` loop (``make_multi_train_step``) is
+not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ppn_tpu_torch import resolve_device
+from ppn_tpu_torch.configs import Config
+from ppn_tpu_torch.nn.model import DTYPES, PoseProposalNet
+from ppn_tpu_torch.ops import encode as enc
+from ppn_tpu_torch.ops.augment import augment_batch
+from ppn_tpu_torch.train.loss import ppn_loss
+
+BATCH_KEYS = ("image", "keypoints", "visible", "bboxes", "valid")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Model (parameters and BatchNorm statistics), momentum traces, EMA of
+    the parameters (None when ``ema_decay`` is 0), the number of steps
+    taken and the generator that drives the augmentation."""
+
+    model: PoseProposalNet
+    trace: Dict[str, torch.Tensor]
+    ema: Optional[Dict[str, torch.Tensor]]
+    step: int
+    generator: torch.Generator
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+
+def eval_params(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The parameters eval and inference use: the EMA copy when tracked."""
+    if state.ema is not None:
+        return state.ema
+    return {n: p.detach() for n, p in state.model.named_parameters()}
+
+
+def make_lr_schedule(cfg: Config) -> Callable[[int], float]:
+    """The learning rate at a step count, as the JAX package's optax
+    schedule computes it, in f32: ``cosine`` is
+    ``warmup_cosine_decay_schedule`` with ``decay_steps = max(num_steps,
+    warmup + 1)``; ``constant`` and ``step`` join a linear warmup, and
+    ``step``'s decays at 60% and 85% of ``num_steps`` are offset by the
+    warmup as the join shifts them."""
+    t = cfg.train
+    f = np.float32
+    lr, warm = f(t.learning_rate), t.warmup_steps
+
+    if t.lr_schedule == "constant":
+        def sched(count):
+            return lr
+    elif t.lr_schedule == "cosine":
+        decay = max(t.num_steps, warm + 1) - warm
+
+        def sched(count):
+            c = f(min(count, decay))
+            return lr * (f(0.5) * (f(1) + np.cos(f(np.pi) * c / f(decay))))
+    elif t.lr_schedule == "step":
+        bounds = sorted({int(t.num_steps * 0.6) - warm: 0.1,
+                         int(t.num_steps * 0.85) - warm: 0.1}.items())
+
+        def sched(count):
+            v = lr
+            for bound, scale in bounds:
+                if count >= bound:
+                    v = f(scale) * v
+            return v
+    else:
+        raise ValueError(f"unknown lr_schedule {t.lr_schedule!r}")
+
+    def joined(count):
+        # optax.join_schedules([linear_schedule(0, lr, warm), sched],
+        # [warm]); with no warmup it is sched itself
+        if count < warm:
+            return float(-lr * (f(1) - f(max(count, 0)) / f(warm)) + lr)
+        return float(sched(count - warm))
+
+    return joined
+
+
+def _seeded_model(cfg: Config, seed: int) -> PoseProposalNet:
+    """A fresh model whose initial weights depend on ``seed`` only."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return PoseProposalNet(cfg.model, dtype=DTYPES[cfg.train.dtype])
+
+
+def create_train_state(cfg: Config, seed: Optional[int] = None,
+                       device=None) -> TrainState:
+    """A fresh train state on ``device`` (``cuda`` unless asked otherwise):
+    a training-mode model seeded from ``seed`` (default the config's), zero
+    traces, the EMA seeded from the parameters when ``ema_decay > 0``, and
+    a generator on the device seeded likewise."""
+    dev = resolve_device(device)
+    seed = cfg.train.seed if seed is None else seed
+    model = _seeded_model(cfg, seed).to(dev).train()
+    params = dict(model.named_parameters())
+    trace = {n: torch.zeros_like(p) for n, p in params.items()}
+    ema = ({n: p.detach().clone() for n, p in params.items()}
+           if cfg.train.ema_decay > 0 else None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return TrainState(model=model, trace=trace, ema=ema, step=0,
+                      generator=gen)
+
+
+def _to_device(batch, dev: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(batch[k]).to(dev) for k in BATCH_KEYS}
+
+
+def loss_and_grads(cfg: Config, state: TrainState, batch,
+                   augment: bool = False):
+    """Augment (when asked) → encode → forward in training mode (which
+    updates the BatchNorm running statistics) → loss → backward. Returns
+    (loss terms, gradients by parameter name)."""
+    m = cfg.model
+    dev = state.device
+    model = state.model.train()
+    batch = _to_device(batch, dev)
+    if augment:
+        batch = augment_batch(m, cfg.data, state.generator, batch,
+                              device=dev)
+    targets = enc.encode_batch(m, batch["keypoints"], batch["visible"],
+                               batch["bboxes"], batch["valid"])
+    _, terms = ppn_loss(m, model(batch["image"]), targets)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(terms["loss_total"], params)
+    return ({k: v.detach() for k, v in terms.items()},
+            dict(zip(names, grads)))
+
+
+@torch.no_grad()
+def sgd_update(cfg: Config, state: TrainState,
+               grads: Dict[str, torch.Tensor]) -> None:
+    """One optimizer step on ``state`` in place: masked weight decay,
+    momentum, the scheduled learning rate, then the EMA of the parameters
+    ``e·d + p·(1 − d)``; the step count advances."""
+    t = cfg.train
+    names, params = zip(*state.model.named_parameters())
+    decayed = [grads[n] + t.weight_decay * p if p.ndim > 1 else grads[n]
+               for n, p in zip(names, params)]
+    traces = [state.trace[n] for n in names]
+    torch._foreach_mul_(traces, t.momentum)
+    torch._foreach_add_(traces, decayed)          # g + μ·trace
+    lr = make_lr_schedule(cfg)(state.step)
+    torch._foreach_add_(list(params), torch._foreach_mul(traces, -lr))
+    if state.ema is not None:
+        d = t.ema_decay
+        ema = [state.ema[n] for n in names]
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, torch._foreach_mul(list(params), 1.0 - d))
+    state.step += 1
+
+
+def train_step(cfg: Config, state: TrainState, batch,
+               augment: bool = False) -> Dict[str, torch.Tensor]:
+    """One SGD step on ``state`` in place. ``batch`` holds image (B, H, W, 3)
+    uint8 or f32 in [0, 1], keypoints (B, P, K, 2), visible (B, P, K),
+    bboxes (B, P, 4) and valid (B, P), as arrays or tensors. Returns the
+    loss terms and ``grad_norm`` (the global norm of the gradients) as 0-d
+    tensors on the device; reading them waits for the step."""
+    terms, grads = loss_and_grads(cfg, state, batch, augment)
+    terms["grad_norm"] = torch.sqrt(
+        sum(torch.sum(torch.square(g)) for g in grads.values()))
+    sgd_update(cfg, state, grads)
+    return terms
+
+
+def eval_loss_step(cfg: Config, state: TrainState,
+                   batch) -> Dict[str, torch.Tensor]:
+    """Loss terms with running-average BatchNorm and no state change."""
+    batch = _to_device(batch, state.device)
+    targets = enc.encode_batch(cfg.model, batch["keypoints"],
+                               batch["visible"], batch["bboxes"],
+                               batch["valid"])
+    was_training = state.model.training
+    state.model.eval()
+    try:
+        with torch.no_grad():
+            _, terms = ppn_loss(cfg.model, state.model(batch["image"]),
+                                targets)
+    finally:
+        state.model.train(was_training)
+    return terms
+
+
+def make_forward(state: TrainState) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Inference forward: images → f32 feature map, with eval-mode
+    BatchNorm (running statistics) and the eval (EMA when tracked)
+    parameters."""
+
+    def forward(images: torch.Tensor) -> torch.Tensor:
+        model = state.model
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                return torch.func.functional_call(
+                    model, {**dict(model.named_buffers()),
+                            **eval_params(state)}, (images,))
+        finally:
+            model.train(was_training)
+
+    return forward

@@ -25,10 +25,9 @@ import torch
 
 from ppn_tpu_torch import resolve_device
 from ppn_tpu_torch.configs import Config
-from ppn_tpu_torch.nn.model import PoseProposalNet
+from ppn_tpu_torch.nn.model import DTYPES, PoseProposalNet
 from ppn_tpu_torch.nn.resnet import BatchNorm, Conv
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _leaf_specs(model: torch.nn.Module):
@@ -90,8 +89,49 @@ def load_inference_npz(cfg: Config, path: str,
     """A snapshot as an eval-mode ``PoseProposalNet`` on ``device``
     (``cuda`` unless asked otherwise), computing in ``cfg.train.dtype``."""
     dev = resolve_device(device)
-    model = PoseProposalNet(cfg.model, dtype=_DTYPES[cfg.train.dtype])
+    model = PoseProposalNet(cfg.model, dtype=DTYPES[cfg.train.dtype])
     with np.load(path) as z:
         leaves = [z[n] for n in sorted(z.files)]
     model.load_state_dict(state_dict_from_jax_leaves(cfg, leaves, model))
     return model.eval().to(dev)
+
+
+def jax_leaves_from_state_dict(state_dict: dict, model: torch.nn.Module
+                               ) -> list[np.ndarray]:
+    """The inverse of ``state_dict_from_jax_leaves``: f32 numpy leaves in
+    the JAX leaf order, OIHW kernels back to HWIO."""
+    leaves = []
+    for _, name, is_kernel in _leaf_specs(model):
+        a = state_dict[name].detach().to(torch.float32).cpu().numpy()
+        leaves.append(a.transpose(2, 3, 1, 0) if is_kernel else a)
+    return leaves
+
+
+def save_inference_npz(path: str, state) -> int:
+    """Write a train state's eval parameters (the EMA when tracked) and
+    BatchNorm statistics as a snapshot the JAX package loads: leaves
+    ``leaf_{i:04d}`` in its order, f32 stored as f16. Returns the number of
+    leaves written."""
+    from ppn_tpu_torch.train.steps import eval_params
+
+    model = state.model
+    sd = {**dict(model.named_buffers()), **eval_params(state)}
+    leaves = jax_leaves_from_state_dict(sd, model)
+    np.savez_compressed(path, **{f"leaf_{i:04d}": a.astype(np.float16)
+                                 for i, a in enumerate(leaves)})
+    return len(leaves)
+
+
+def load_npz_into_train_state(cfg: Config, path: str, state):
+    """Fine-tune initialization: a snapshot's parameters and BatchNorm
+    statistics into ``state``'s model, the EMA (when tracked) seeded from
+    them; the momentum traces, step count and generator stay fresh — a
+    fine-tune restarts the schedule. Returns ``state``."""
+    model = state.model
+    with np.load(path) as z:
+        leaves = [z[n] for n in sorted(z.files)]
+    model.load_state_dict(state_dict_from_jax_leaves(cfg, leaves, model))
+    if state.ema is not None:
+        state.ema = {n: p.detach().clone()
+                     for n, p in model.named_parameters()}
+    return state

@@ -1,22 +1,27 @@
 """The port's own copies of the JAX package's host modules — configs,
-synthetic data, batching, PCKh — must agree with the originals exactly."""
+config overrides, synthetic data, batching, PCKh, metric logging — must
+agree with the originals exactly."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 
 from ppn_tpu.configs import base as jax_configs
+from ppn_tpu.configs import overrides as jax_overrides
 from ppn_tpu.data import pipeline as jax_pipeline
 from ppn_tpu.data.synthetic import SyntheticPoseDataset as JaxSynthetic
 from ppn_tpu.eval import pckh as jax_pckh
 from ppn_tpu.eval import runner as jax_runner
 from ppn_tpu.ops.parse import People as JaxPeople
-from ppn_tpu_torch import configs
+from ppn_tpu.utils import logging as jax_logging
+from ppn_tpu_torch import configs, overrides
 from ppn_tpu_torch.data import pipeline
 from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset, heldout_dataset
 from ppn_tpu_torch.eval import pckh, runner
 from ppn_tpu_torch.ops.parse import People
+from ppn_tpu_torch.utils import logging
 
 NAMES = sorted(jax_configs._REGISTRY)
 
@@ -130,3 +135,65 @@ def test_pckh_matches_jax():
     np.testing.assert_array_equal(
         pckh.headsize_from_bbox(np.array([[0, 0, 3, 4.0]])),
         jax_pckh.headsize_from_bbox(np.array([[0, 0, 3, 4.0]])))
+
+
+def test_infinite_batches_match_jax():
+    cfg, jcfg = configs.get_config("tiny_test"), jax_configs.get_config(
+        "tiny_test")
+    for size, bs in ((5, 2), (3, 4)):   # epochs, and sampling with replacement
+        ours = pipeline.infinite_batches(
+            SyntheticPoseDataset(cfg, size=size, seed=1), bs, seed=3,
+            image_uint8=True)
+        theirs = jax_pipeline.infinite_batches(
+            JaxSynthetic(jcfg, size=size, seed=1), bs, seed=3,
+            image_uint8=True)
+        for _ in range(5):
+            a, b = next(ours), next(theirs)
+            assert sorted(a) == sorted(b)
+            for k in b:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("assignments", [
+    ["data.rotate_deg=20", "model.nms_thresh=0.45", "train.resume=false"],
+    ["train.mesh_shape=(2, 4)", "model.edges=((0, 3), (3, 2))",
+     "model.flip_pairs=()"],
+    ["train.lr_schedule=step", "data.augment_dtype=float32"],
+])
+def test_overrides_match_jax(assignments):
+    cfg = overrides.apply_overrides(configs.get_config("mpii_r18_384"),
+                                    assignments)
+    jcfg = jax_overrides.apply_overrides(
+        jax_configs.get_config("mpii_r18_384"), assignments)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+
+
+@pytest.mark.parametrize("bad", ["data.nope=1", "data", "train.resume=maybe",
+                                 "model.edges=((0, 99),)"])
+def test_overrides_reject_like_jax(bad):
+    with pytest.raises(ValueError) as ours:
+        overrides.apply_overrides(configs.get_config("tiny_test"), [bad])
+    with pytest.raises(ValueError) as theirs:
+        jax_overrides.apply_overrides(jax_configs.get_config("tiny_test"),
+                                      [bad])
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_metric_logger_matches_jax(tmp_path, capsys):
+    metrics = {"loss_total": 1.25, "grad_norm": np.float32(3.5),
+               "images_per_sec": 12}
+    outs = []
+    for mod, d in ((logging, tmp_path / "ours"), (jax_logging,
+                                                  tmp_path / "theirs")):
+        log = mod.MetricLogger(str(d))
+        log.log(7, metrics)
+        log.close()
+        recs = [json.loads(line) for line in
+                (d / "train_metrics.jsonl").read_text().splitlines()]
+        for r in recs:
+            r.pop("time")
+        line = capsys.readouterr().out.strip()
+        outs.append((recs, line[line.index("]") + 1:]))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == [{"step": 7, "loss_total": 1.25, "grad_norm": 3.5,
+                           "images_per_sec": 12.0}]

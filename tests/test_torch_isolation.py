@@ -72,6 +72,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         load_inference_npz(
             get_config("mpii_r18_384"),
             os.path.join(ROOT, "artifacts", "mpii_hero_r5_ema_f16.npz"))
+    # the training slice's entry points
+    import torch as _torch
+
+    from ppn_tpu_torch.apps import train
+    from ppn_tpu_torch.data.device_cache import DeviceCache
+    from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from ppn_tpu_torch.ops.augment import augment_batch
+    from ppn_tpu_torch.train.trainer import Trainer
+
+    ds = SyntheticPoseDataset(cfg, size=2, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, iter([]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceCache(ds)
+    batch = DeviceCache(ds, device="cpu").batch([0, 1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        augment_batch(cfg.model, cfg.data, _torch.Generator(), batch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--config", "tiny_test", "--steps", "1"])
+    out = augment_batch(cfg.model, cfg.data, _torch.Generator(), batch,
+                        device="cpu")
+    assert out["image"].dtype == _torch.bfloat16
     # asked for explicitly, the CPU works
     ppl = Predictor(cfg, model, device="cpu").predict(images)
     assert ppl.kp_cell.shape == (1, cfg.model.max_instances,
