@@ -12,19 +12,29 @@ Phases, each raising on failure:
                ``ppn_warp_kernel`` (ppn_tpu_torch/csrc/warp.cu);
   3. post kernel — against its plain PyTorch version on the card:
                tiny_test, mpii_r18_384 at B=1, 8, 128 and coco_r18_384_crowded
-               at B=128; every decision field bitwise equal, float fields
-               within 4 ulps;
+               at B=128 on the ``normal``, ``sparse`` and ``ties`` maps, and
+               the edge cases: no proposal above the threshold (``empty``),
+               every proposal above it in NMS chains (``chain``, MPII and
+               COCO), B=133 (more CTAs than SMs); every decision field
+               bitwise equal, float fields within 4 ulps;
   4. warp kernel — against its plain PyTorch version on the card, bitwise:
                mpii_r18_384 384² at B=32 with matrices drawn by
                ``sample_params`` and at B=6 with the unit tests' six
-               matrices, bf16 and f32; tiny_test 64² likewise;
+               matrices, bf16 and f32; tiny_test 64² likewise; the edge
+               cases 64×97 (a width no tile divides) at C=1, 3, 4 and 384²
+               at B=1;
   5. inference path, part 1 — ``Predictor.from_npz`` on the committed MPII
                snapshot, PCKh over the 16-image synthetic protocol at B=8
                (det 0.02, nms 0.45): 0.9921 ± 3e-3 over 378 joints;
   6. inference path, part 2 — uint8 (128, 384, 384, 3) through
                ``Predictor.predict``: warm-up, then the median of 20 calls
-               timed with CUDA events; the post kernel's own time beside its
-               plain version's and its bound;
+               timed with CUDA events; the post kernel's own time (a CUDA
+               graph of 50 launches, and back to back through the wrapper
+               with the wrapper's host time per call) beside its plain
+               version's and its bounds (the whole map, and the bytes this
+               input needs), and its stage split from the kernel's
+               %globaltimer stamps at B=1 and B=128 on the main-path map and
+               on the ``normal`` map;
   7. train step, card against CPU — one ``train_step`` of tiny_test in f32
                (TF32 off), augmentation off, from the same parameters on
                both: loss terms within rel 1e-4;
@@ -41,7 +51,8 @@ Phases, each raising on failure:
  10. overfit  — mpii_r18_384 from a fresh init on 8 fixed images,
                augmentation off, constant lr 0.007, 60 steps: the mean
                loss_total of the last 10 steps under half the first's;
- 11. warp kernel times at B=32 bf16 beside its plain version and its bound;
+ 11. warp kernel times at B=32 bf16 (a CUDA graph of 50 launches, and back
+               to back) beside its plain version and its bound;
  12. report  — the kernels line, then the device line last.
 
 Launch counts are set to 0 just before each path (phase 5 for inference,
@@ -52,6 +63,7 @@ and timing launches fall outside those windows.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -122,16 +134,78 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_bound_ms(cfg, B: int) -> float:
-    """Least time for ppn_post_kernel's work at batch B: the bytes it must
-    move (the f32 map read once, the People fields written once) over the
-    HBM rate. Its operation count depends on the NMS waves and is not
-    counted, so the bound is by bytes."""
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of one call with `reps` calls captured in a CUDA
+    graph and replayed: each kernel and its launch, without the host's
+    per-call Python work (which bounds `time_ms` for a kernel of a few tens
+    of µs)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host time of one call over `reps` calls enqueued back to back
+    (µs; the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / reps
+
+
+def whole_map_bound_ms(cfg, B: int) -> float:
+    """ppn_post_kernel's bound if it read the whole f32 map: the map read
+    once and the People fields written once, over the HBM rate."""
+    from ppn_tpu_torch.ops.cuda_post import output_bytes
+
     H, W = cfg.outsize
-    N, K1, P = H * W, cfg.num_classes, cfg.max_instances
-    out_bytes = P * K1 * (2 * 4 + 4 * 4 + 4 + 1) + P * (1 + 4)
-    nbytes = B * (N * cfg.num_channels * 4 + out_bytes)
+    nbytes = B * (H * W * cfg.num_channels * 4 + output_bytes(cfg))
     return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def kernel_bound_ms(cfg, fm: torch.Tensor) -> float:
+    """Least time for ppn_post_kernel's work on this map: the bytes this
+    input needs (``cuda_post.needed_bytes``: the proposal channels, the limb
+    logits whose destination keeps a score, the outputs) over the HBM rate.
+    Its operation count depends on the data through NMS and is not
+    counted, so the bound is by bytes."""
+    from ppn_tpu_torch.ops.cuda_post import needed_bytes
+
+    return 1e3 * needed_bytes(cfg, fm) / HBM_BYTES_PER_S
+
+
+def post_stage_us(cfg, fm: torch.Tensor, reps: int) -> tuple[dict, float]:
+    """Mean µs of each ppn_post_kernel stage over the CTAs of `reps`
+    launches, from the kernel's %globaltimer stamps; and the mean span of a
+    launch, from the first CTA's entry to the last CTA's end (µs)."""
+    from ppn_tpu_torch.ops import cuda_post
+
+    clocks = torch.zeros((fm.shape[0], len(cuda_post.STAGES) + 1),
+                         dtype=torch.int64, device=fm.device)
+    sums, span = dict.fromkeys(cuda_post.STAGES, 0.0), 0.0
+    for _ in range(reps):
+        cuda_post.postprocess_batch_cuda(cfg, fm, stage_clocks=clocks)
+        torch.cuda.synchronize()
+        for k, v in cuda_post.stage_us(clocks).items():
+            sums[k] += v / reps
+        span += float(clocks[:, -1].max() - clocks[:, 0].min()) / 1e3 / reps
+    return sums, span
 
 
 def warp_bound_ms(images: torch.Tensor) -> float:
@@ -144,19 +218,26 @@ def warp_bound_ms(images: torch.Tensor) -> float:
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
+def case_matrices(H: int, W: int, B: int, dev) -> torch.Tensor:
+    """(B, 2, 3) matrices of the first B unit-test cases about the centre
+    of an H×W image."""
+    from ppn_tpu_torch.ops.image import make_affine
+
+    c = torch.tensor([W / 2.0, H / 2.0], device=dev)
+    a, s, t, f = zip(*WARP_CASES[:B])
+    return make_affine(
+        c, c, torch.tensor(a, device=dev), torch.tensor(s, device=dev),
+        torch.tensor([[x, -x] for x in t], device=dev),
+        torch.tensor(f, device=dev))[0]
+
+
 def warp_matrices(cfg, B: int, dev, seed: int) -> torch.Tensor:
     """(B, 2, 3) matrices: the six test cases first, then draws of
     ``sample_params`` on the card for random person boxes."""
     from ppn_tpu_torch.ops.augment import sample_params
-    from ppn_tpu_torch.ops.image import make_affine
 
     H, W = cfg.model.insize
-    c = torch.tensor([W / 2.0, H / 2.0], device=dev)
-    a, s, t, f = zip(*WARP_CASES)
-    cases, _ = make_affine(
-        c, c, torch.tensor(a, device=dev), torch.tensor(s, device=dev),
-        torch.tensor([[x, -x] for x in t], device=dev),
-        torch.tensor(f, device=dev))
+    cases = case_matrices(H, W, len(WARP_CASES), dev)
     if B <= len(WARP_CASES):
         return cases[:B]
     rng = np.random.default_rng(seed)
@@ -246,24 +327,28 @@ def main() -> int:
                 log(f"[build] {source}: {line.strip()}")
 
     # ---- 3. post kernel against plain on the card ---------------------------
-    cases = [("tiny_test", 3), ("mpii_r18_384", 1), ("mpii_r18_384", 8),
-             ("mpii_r18_384", 128), ("coco_r18_384_crowded", 128)]
+    cases = [(name, B, kind) for name, B in (
+        ("tiny_test", 3), ("mpii_r18_384", 1), ("mpii_r18_384", 8),
+        ("mpii_r18_384", 128), ("coco_r18_384_crowded", 128))
+        for kind in KINDS]
+    cases += [("mpii_r18_384", 8, "empty"), ("mpii_r18_384", 8, "chain"),
+              ("coco_r18_384_crowded", 8, "chain"),
+              ("mpii_r18_384", 133, "normal")]
     worst_ulp, worst_err = 0, 0.0
-    for name, B in cases:
+    for name, B, kind in cases:
         m = get_config(name).model
-        for kind in KINDS:
-            fm = torch.from_numpy(feature_map_case(m, B, seed=B, kind=kind))
-            fm = fm.to(dev)
-            got = cuda_post.postprocess_batch_cuda(m, fm)
-            want = postprocess_batch_plain(m, fm)
-            torch.cuda.synchronize()
-            equal, ulp, err = compare(got, want)
-            worst_ulp, worst_err = max(worst_ulp, ulp), max(worst_err, err)
-            log(f"[kernel] {name} B={B} {kind}: decisions_equal={equal} "
-                f"max_ulp={ulp} max_abs_err={err:.3g} "
-                f"persons={int(want.valid.sum())}")
-            if not equal or ulp > ULP_LIMIT:
-                raise AssertionError(f"kernel disagrees: {name} B={B} {kind}")
+        fm = torch.from_numpy(feature_map_case(m, B, seed=B, kind=kind))
+        fm = fm.to(dev)
+        got = cuda_post.postprocess_batch_cuda(m, fm)
+        want = postprocess_batch_plain(m, fm)
+        torch.cuda.synchronize()
+        equal, ulp, err = compare(got, want)
+        worst_ulp, worst_err = max(worst_ulp, ulp), max(worst_err, err)
+        log(f"[kernel] {name} B={B} {kind}: decisions_equal={equal} "
+            f"max_ulp={ulp} max_abs_err={err:.3g} "
+            f"persons={int(want.valid.sum())}")
+        if not equal or ulp > ULP_LIMIT:
+            raise AssertionError(f"kernel disagrees: {name} B={B} {kind}")
 
     # ---- 4. warp kernel against plain on the card ---------------------------
     mpii = get_config("mpii_r18_384")
@@ -278,28 +363,35 @@ def main() -> int:
     tiny_img = torch.from_numpy(np.stack(
         [SyntheticPoseDataset(tiny, size=8, seed=3)[i]["image"]
          for i in range(8)])).to(dev)
-    warp_err, warp_pixels = 0.0, 0
+    warp_cases = []
     for cfg_w, images in ((mpii, cache.data["image"][:32].float() / 255.0),
                           (tiny, tiny_img)):
-        name = cfg_w.name
         for B in (images.shape[0], len(WARP_CASES)):
-            mats = warp_matrices(cfg_w, B, dev, seed=B)
-            for dt in (torch.bfloat16, torch.float32):
-                x = images[:B].to(dt)
-                got = cuda_warp.affine_warp_cuda(x, mats)
-                want = affine_warp_separable_plain(x, mats)
-                torch.cuda.synchronize()
-                d = (got.float() - want.float()).abs()
-                n_diff = int((d > 0).sum())
-                warp_err = max(warp_err, float(d.max()))
-                warp_pixels += d.numel()
-                log(f"[warp] {name} B={B} {str(dt)[6:]}: differing values "
-                    f"{n_diff} of {d.numel()}, max_abs_err "
-                    f"{float(d.max()):.3g}")
-                if n_diff:
-                    raise AssertionError(
-                        f"ppn_warp_kernel differs from its plain version: "
-                        f"{name} B={B} {dt}")
+            warp_cases.append((f"{cfg_w.name} B={B}", images[:B],
+                               warp_matrices(cfg_w, B, dev, seed=B)))
+    rng = np.random.default_rng(4)
+    for H, W, C, B in ((64, 97, 3, 6), (64, 97, 1, 6), (64, 97, 4, 6),
+                       (384, 384, 3, 1)):   # widths no tile divides, C, B
+        pixels = rng.random((B, H, W, C), np.float32)
+        warp_cases.append((f"edge {H}x{W}x{C} B={B}",
+                           torch.from_numpy(pixels).to(dev),
+                           case_matrices(H, W, B, dev)))
+    warp_err, warp_pixels = 0.0, 0
+    for label, images, mats in warp_cases:
+        for dt in (torch.bfloat16, torch.float32):
+            x = images.to(dt)
+            got = cuda_warp.affine_warp_cuda(x, mats)
+            want = affine_warp_separable_plain(x, mats)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            n_diff = int((d > 0).sum())
+            warp_err = max(warp_err, float(d.max()))
+            warp_pixels += d.numel()
+            log(f"[warp] {label} {str(dt)[6:]}: differing values {n_diff} "
+                f"of {d.numel()}, max_abs_err {float(d.max()):.3g}")
+            if n_diff:
+                raise AssertionError(f"ppn_warp_kernel differs from its "
+                                     f"plain version: {label} {dt}")
 
     # ---- 5. inference path: snapshot PCKh through the kernel ----------------
     cfg = get_config("mpii_r18_384")
@@ -365,14 +457,29 @@ def main() -> int:
     if not equal or ulp > ULP_LIMIT:
         raise AssertionError("kernel disagrees on the main-path map")
     worst_ulp, worst_err = max(worst_ulp, ulp), max(worst_err, err)
-    times = {}
+    times, post_stages = {}, {}
     for b, fm in ((1, fm1), (B, fm128)):
-        k_ms = time_ms(lambda: cuda_post.postprocess_batch_cuda(m, fm), 50)
+        call = functools.partial(cuda_post.postprocess_batch_cuda, m, fm)
+        k_ms, eager_ms = graph_ms(call, 50), time_ms(call, 50)
+        call_us = host_us(call, 200)
         p_ms = time_ms(lambda: postprocess_batch_plain(m, fm), 5)
-        bound = kernel_bound_ms(m, b)
-        times[b] = (k_ms, p_ms, bound)
-        log(f"[time] B={b}: ppn_post_kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.3f} ms, bound {bound:.6f} ms (bytes) | {card}")
+        bound, whole = kernel_bound_ms(m, fm), whole_map_bound_ms(m, b)
+        times[b] = (k_ms, p_ms, bound, whole, eager_ms, call_us)
+        log(f"[time] B={b}: ppn_post_kernel {k_ms:.4f} ms (CUDA graph of 50 "
+            f"launches; back to back through the wrapper {eager_ms:.4f} ms, "
+            f"the wrapper's host time {call_us:.1f} µs a call), plain "
+            f"{p_ms:.3f} ms, bound {bound:.6f} ms (bytes this map needs; "
+            f"whole map {whole:.6f} ms) | {card}")
+    for kind, maps in (("main", {1: fm1, B: fm128}), ("normal", {
+            b: torch.from_numpy(feature_map_case(m, b, seed=b)).to(dev)
+            for b in (1, B)})):
+        for b, fm in maps.items():
+            us, span = post_stage_us(m, fm, 20)
+            post_stages[kind, b] = dict(us, span=span)
+            log(f"[stages] {kind} map B={b}: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
+                + f" µs (sum {sum(us.values()):.3f}; mean over CTAs and "
+                f"20 launches); launch span {span:.3f} µs | {card}")
     with torch.no_grad():
         fwd_ms = time_ms(lambda: pred.model(x), 10)
     log(f"[time] B={B}: model forward {fwd_ms:.3f} ms | {card}")
@@ -494,15 +601,17 @@ def main() -> int:
     xw = cache.data["image"][:32].to(torch.float32).div(255.0).to(
         torch.bfloat16)
     mw = warp_matrices(mpii, 32, dev, seed=32)
-    w_ms = time_ms(lambda: cuda_warp.affine_warp_cuda(xw, mw), 50)
+    wcall = functools.partial(cuda_warp.affine_warp_cuda, xw, mw)
+    w_ms, w_eager_ms = graph_ms(wcall, 50), time_ms(wcall, 50)
     wp_ms = time_ms(lambda: affine_warp_separable_plain(xw, mw), 5)
     w_bound = warp_bound_ms(xw)
-    log(f"[time] B=32 384x384x3 bf16: ppn_warp_kernel {w_ms:.4f} ms, plain "
+    log(f"[time] B=32 384x384x3 bf16: ppn_warp_kernel {w_ms:.4f} ms (CUDA "
+        f"graph of 50 launches; back to back {w_eager_ms:.4f} ms), plain "
         f"{wp_ms:.3f} ms, bound {w_bound:.6f} ms (bytes) | {card}")
 
     # ---- 12. report ----------------------------------------------------------
-    k_ms, p_ms, bound = times[B]
-    k1_ms, p1_ms, bound1 = times[1]
+    k_ms, p_ms, bound, whole, eager_ms, call_us = times[B]
+    k1_ms, p1_ms, bound1, whole1, eager1_ms, call1_us = times[1]
     log(card)   # the nvidia-smi name,power.limit line, as it prints it
     log(json.dumps({"kernels": [{
         "name": "ppn_post_kernel", "route": "cuda",
@@ -512,9 +621,19 @@ def main() -> int:
         "launches": launches, "max_abs_err": worst_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
         "bound_by": "bytes", "library_ms": None,
+        "ms_by": "CUDA graph replay of 50 launches",
+        "ms_eager": eager_ms, "ms_eager_b1": eager1_ms,
+        "host_us_per_call": call_us, "host_us_per_call_b1": call1_us,
+        "bound_held_to": "bytes the main-path map needs",
+        "bound_ms_whole_map": whole,
         "decisions_equal": True, "max_ulp": worst_ulp,
         "batch": B, "ms_b1": k1_ms, "plain_ms_b1": p1_ms,
-        "bound_ms_b1": bound1, "predict_ms_b128": med,
+        "bound_ms_b1": bound1, "bound_ms_b1_whole_map": whole1,
+        "stage_us_b1": post_stages["main", 1],
+        "stage_us_b128": post_stages["main", B],
+        "stage_us_normal_b1": post_stages["normal", 1],
+        "stage_us_normal_b128": post_stages["normal", B],
+        "predict_ms_b128": med,
         "img_per_s_b128": 1e3 * B / med, "forward_ms_b128": fwd_ms,
         "launches_training_path": post_train_launches,
     }, {
@@ -524,6 +643,8 @@ def main() -> int:
         "launches": warp_launches, "max_abs_err": warp_err,
         "ms": w_ms, "plain_ms": wp_ms, "bound_ms": w_bound,
         "bound_by": "bytes", "library_ms": None,
+        "bound_held_to": "each input pixel read once, each output written once",
+        "ms_by": "CUDA graph replay of 50 launches", "ms_eager": w_eager_ms,
         "batch": 32, "dtype": "bfloat16", "values_compared": warp_pixels,
         "train_step_ms_b32": step_med,
         "train_img_per_s_b32": 1e3 * bs / step_med,

@@ -12,17 +12,24 @@ those to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ppn_tpu_torch.configs import PPNConfig
 from ppn_tpu_torch.ops import cuda_build
-from ppn_tpu_torch.ops.parse import People
+from ppn_tpu_torch.ops import decode as dec
+from ppn_tpu_torch.ops import nms as nmsops
+from ppn_tpu_torch.ops.parse import People, window_tables
 
 SOURCE = "post.cu"
 
 # Launches of ppn_post_kernel in this process (one per wrapper call).
 LAUNCHES = 0
+
+# The kernel's stages, in order; with ``stage_clocks`` thread 0 of each CTA
+# stamps %globaltimer (ns) at entry and after the barrier closing each one.
+STAGES = ("decode", "mask", "nms", "windows", "seeds", "walk", "write")
 
 _lib = None
 
@@ -39,7 +46,7 @@ def _load():
         lib = cuda_build.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ppn_post_launch.argtypes = (
-            [p] * 7 + [i] * 10 + [f] * 6 + [i, i, p, p])
+            [p] * 7 + [i] * 10 + [f] * 6 + [i, i, p, p, p])
         lib.ppn_post_launch.restype = i
         lib.ppn_post_error_string.argtypes = [i]
         lib.ppn_post_error_string.restype = ctypes.c_char_p
@@ -47,8 +54,19 @@ def _load():
     return _lib
 
 
-def postprocess_batch_cuda(cfg: PPNConfig, feature_map: torch.Tensor) -> People:
-    """(B, H', W', C) f32 CUDA feature map → batched People, one launch."""
+@functools.lru_cache(maxsize=None)
+def _edges(edges: tuple) -> ctypes.Array:
+    """The (src, dst) limb pairs as the C array the launch reads."""
+    return (ctypes.c_int32 * (2 * len(edges)))(*[v for e in edges for v in e])
+
+
+def postprocess_batch_cuda(cfg: PPNConfig, feature_map: torch.Tensor,
+                           stage_clocks: torch.Tensor | None = None) -> People:
+    """(B, H', W', C) f32 CUDA feature map → batched People, one launch.
+
+    ``stage_clocks``, a (B, len(STAGES) + 1) int64 tensor on the map's
+    device, receives each CTA's stage timestamps (``stage_us`` reads them);
+    None, the default, times nothing."""
     global LAUNCHES
     H, W = cfg.outsize
     Hl, Wl = cfg.local_grid_size
@@ -67,6 +85,12 @@ def postprocess_batch_cuda(cfg: PPNConfig, feature_map: torch.Tensor) -> People:
         raise ValueError(f"max_instances {P} exceeds the {H * W} grid cells")
     B = fm.shape[0]
     dev = fm.device
+    if stage_clocks is not None and (
+            stage_clocks.dtype != torch.int64
+            or stage_clocks.device != dev or not stage_clocks.is_contiguous()
+            or tuple(stage_clocks.shape) != (B, len(STAGES) + 1)):
+        raise ValueError(f"stage_clocks must be a contiguous int64 "
+                         f"({B}, {len(STAGES) + 1}) tensor on {dev}")
     kp_cell = torch.empty((B, P, K1, 2), dtype=torch.int32, device=dev)
     kp_box = torch.empty((B, P, K1, 4), dtype=torch.float32, device=dev)
     kp_score = torch.empty((B, P, K1), dtype=torch.float32, device=dev)
@@ -77,7 +101,6 @@ def postprocess_batch_cuda(cfg: PPNConfig, feature_map: torch.Tensor) -> People:
         lib = _load()
         sy, sx = cfg.stride
         img_h, img_w = cfg.insize
-        edges = (ctypes.c_int32 * (2 * L))(*[v for e in cfg.edges for v in e])
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ppn_post_launch(
             fm.data_ptr(), kp_cell.data_ptr(), kp_box.data_ptr(),
@@ -85,7 +108,8 @@ def postprocess_batch_cuda(cfg: PPNConfig, feature_map: torch.Tensor) -> People:
             num_kp.data_ptr(), dev.index or 0, B, H, W, cfg.num_channels,
             K1, L, Hl, Wl, P, sx, sy, float(img_w), float(img_h),
             cfg.detection_thresh, cfg.nms_thresh, cfg.min_num_keypoints,
-            int(cfg.size_activation == "exp"), edges, stream)
+            int(cfg.size_activation == "exp"), _edges(tuple(cfg.edges)),
+            None if stage_clocks is None else stage_clocks.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(
                 "ppn_post_kernel launch failed: "
@@ -94,3 +118,34 @@ def postprocess_batch_cuda(cfg: PPNConfig, feature_map: torch.Tensor) -> People:
     return People(kp_cell=kp_cell, kp_box=kp_box, kp_score=kp_score,
                   kp_valid=kp_valid.view(torch.bool),
                   valid=valid.view(torch.bool), num_kp=num_kp)
+
+
+def stage_us(clocks: torch.Tensor) -> dict[str, float]:
+    """Mean µs of each stage over the CTAs of a ``stage_clocks`` buffer."""
+    d = clocks.double().diff(dim=1).mean(dim=0) / 1e3
+    return dict(zip(STAGES, d.tolist()))
+
+
+def output_bytes(cfg: PPNConfig) -> int:
+    """Bytes of one image's People fields."""
+    P, K1 = cfg.max_instances, cfg.num_classes
+    return P * K1 * (2 * 4 + 4 * 4 + 4 + 1) + P * (1 + 4)
+
+
+def needed_bytes(cfg: PPNConfig, feature_map: torch.Tensor) -> int:
+    """Bytes ppn_post_kernel must move for this (B, H', W', C) map: the 6·K1
+    proposal channels of every cell; 4 bytes for each (image, cell, limb,
+    offset) whose destination lies in the frame and keeps a post-NMS score
+    > 0 (no other limb logit can change the result); and the outputs. The
+    post-NMS scores come from the plain version."""
+    B = feature_map.shape[0]
+    H, W = cfg.outsize
+    N, K1 = H * W, cfg.num_classes
+    _, props = dec.decode(cfg, feature_map)
+    score = nmsops.nms_batch(cfg, props).score.reshape(B, N, K1)
+    kept = score[:, :, [d for _, d in cfg.edges]] > 0.0          # (B, N, L)
+    _, nbrv, nbrc = window_tables(cfg)                            # (NW, N)
+    dev = feature_map.device
+    inside = torch.from_numpy(nbrv).to(dev)[None, :, :, None]
+    limb_reads = int((kept[:, torch.from_numpy(nbrc).to(dev)] & inside).sum())
+    return B * (N * 6 * K1 * 4 + output_bytes(cfg)) + 4 * limb_reads

@@ -17,6 +17,7 @@ import numpy as np
 from ppn_tpu_torch.configs import PPNConfig
 
 KINDS = ("normal", "sparse", "ties")
+EDGE_KINDS = ("empty", "chain")
 
 
 def feature_map_case(cfg: PPNConfig, batch: int, seed: int,
@@ -36,9 +37,47 @@ def feature_map_case(cfg: PPNConfig, batch: int, seed: int,
                 fm[b, cells // W, cells % W, K1 + c] = 4.0
     elif kind == "ties":
         fm = np.round(fm)
+    elif kind == "empty":
+        fm[..., :2 * K1] = -20.0
+    elif kind == "chain":
+        fm = _chain(cfg, fm, rng)
     elif kind != "normal":
-        raise ValueError(f"unknown case kind {kind!r}; have {KINDS}")
+        raise ValueError(f"unknown case kind {kind!r}; have "
+                         f"{KINDS + EDGE_KINDS}")
     return fm.astype(np.float32)
+
+
+def _size_logit(cfg: PPNConfig, frac: float) -> float:
+    """The w/h logit that decodes to ``frac`` of the input side."""
+    if cfg.size_activation == "exp":
+        return float(np.log(frac))
+    return float(np.log(frac / (1.0 - frac)))
+
+
+def _chain(cfg: PPNConfig, fm: np.ndarray, rng) -> np.ndarray:
+    """The ``chain`` case on top of random limb logits ``fm``."""
+    B, H, W = fm.shape[:3]
+    K1 = cfg.num_classes
+    sy, sx = cfg.stride
+    img_h, img_w = cfg.insize
+    t = cfg.nms_thresh
+    # same-height boxes dx apart have IoU (w − dx)/(w + dx): above t at one
+    # stride, at most t at two; w is the geometric mean of those limits
+    w = np.sqrt(2.0) * sx * (1.0 + t) / (1.0 - t)
+    h = 0.5 * sy                        # rows apart never touch
+    if w >= img_w:
+        raise ValueError(f"{cfg.outsize} grid too small for the chain case")
+    for b in range(B):
+        rank = (rng.permutation(H)[:, None] * W
+                + np.arange(W)[None, :])    # score rank of each cell
+        logit = 6.0 - 0.02 * rank           # σ(·)² distinct, > 0.9
+        fm[b, :, :, :K1] = logit[..., None]
+        fm[b, :, :, K1:2 * K1] = logit[..., None]
+        fm[b, :, :, 2 * K1:3 * K1] = rng.normal(0.0, 0.05, (H, W, K1))
+        fm[b, :, :, 3 * K1:4 * K1] = 0.0    # rows aligned: flat boxes
+        fm[b, :, :, 4 * K1:5 * K1] = _size_logit(cfg, w / img_w)
+        fm[b, :, :, 5 * K1:6 * K1] = _size_logit(cfg, h / img_h)
+    return fm
 
 
 def max_ulp(a: np.ndarray, b: np.ndarray) -> int:

@@ -29,28 +29,62 @@ def device():
     return torch.device("cuda")
 
 
+def _assert_kernel_matches_plain(m, fm, ctx):
+    from ppn_tpu_torch.ops import cuda_post
+    from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
+
+    before = cuda_post.LAUNCHES
+    got = cuda_post.postprocess_batch_cuda(m, fm)
+    torch.cuda.synchronize()
+    assert cuda_post.LAUNCHES == before + 1
+    want = postprocess_batch_plain(m, fm)
+    for f in ("kp_cell", "kp_valid", "valid", "num_kp"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype and torch.equal(g, w), (ctx, f)
+    for f in ("kp_box", "kp_score"):
+        ulp = max_ulp(getattr(got, f).cpu().numpy(),
+                      getattr(want, f).cpu().numpy())
+        assert ulp <= ULPS, (ctx, f, ulp)
+
+
 @pytest.mark.parametrize("name", ["tiny_test", "mpii_r18_384",
                                   "coco_r18_384_crowded"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_kernel_matches_plain(device, name, kind):
-    from ppn_tpu_torch.ops import cuda_post
-    from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
-
     m = get_config(name).model
     for seed in range(4):
         fm = torch.from_numpy(feature_map_case(m, 3, seed, kind)).to(device)
-        before = cuda_post.LAUNCHES
-        got = cuda_post.postprocess_batch_cuda(m, fm)
-        torch.cuda.synchronize()
-        assert cuda_post.LAUNCHES == before + 1
-        want = postprocess_batch_plain(m, fm)
-        for f in ("kp_cell", "kp_valid", "valid", "num_kp"):
-            g, w = getattr(got, f), getattr(want, f)
-            assert g.dtype == w.dtype and torch.equal(g, w), (f, seed)
-        for f in ("kp_box", "kp_score"):
-            ulp = max_ulp(getattr(got, f).cpu().numpy(),
-                          getattr(want, f).cpu().numpy())
-            assert ulp <= ULPS, (f, seed, ulp)
+        _assert_kernel_matches_plain(m, fm, seed)
+
+
+@pytest.mark.parametrize("name, batch, kind", [
+    ("mpii_r18_384", 4, "empty"),            # no candidate in any class
+    ("mpii_r18_384", 4, "chain"),            # every proposal a candidate,
+    ("coco_r18_384_crowded", 4, "chain"),    # keeps alternating
+    ("mpii_r18_384", 133, "normal"),         # more CTAs than SMs
+])
+def test_kernel_matches_plain_on_edge_cases(device, name, batch, kind):
+    m = get_config(name).model
+    for seed in range(2):
+        fm = feature_map_case(m, batch, seed, kind)
+        _assert_kernel_matches_plain(m, torch.from_numpy(fm).to(device), seed)
+
+
+def test_stage_clocks(device):
+    """The stage stamps rise through the stages and timing changes no
+    output."""
+    from ppn_tpu_torch.ops import cuda_post
+
+    m = get_config("mpii_r18_384").model
+    fm = torch.from_numpy(feature_map_case(m, 5, 1)).to(device)
+    clocks = torch.zeros((5, len(cuda_post.STAGES) + 1), dtype=torch.int64,
+                         device=device)
+    timed = cuda_post.postprocess_batch_cuda(m, fm, stage_clocks=clocks)
+    plain = cuda_post.postprocess_batch_cuda(m, fm)
+    torch.cuda.synchronize()
+    assert bool((clocks.diff(dim=1) >= 0).all()) and bool(clocks[:, 0].gt(0).all())
+    assert all(torch.equal(a, b) for a, b in zip(timed, plain))
+    assert set(cuda_post.stage_us(clocks)) == set(cuda_post.STAGES)
 
 
 def test_fast_path_launches_kernel(device):

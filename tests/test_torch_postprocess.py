@@ -25,7 +25,7 @@ from ppn_tpu_torch.ops import nms as nmsops
 from ppn_tpu_torch.ops import parse as parseops
 from ppn_tpu_torch.ops.postprocess import (postprocess_batch_fast,
                                            postprocess_batch_plain)
-from ppn_tpu_torch.testing import KINDS, feature_map_case, max_ulp
+from ppn_tpu_torch.testing import EDGE_KINDS, KINDS, feature_map_case, max_ulp
 
 from test_postprocess import oracle_nms, oracle_parse
 
@@ -144,3 +144,52 @@ def test_kernel_wrapper_refuses_cpu_tensor():
     fm = torch.from_numpy(feature_map_case(m, 1, 0))
     with pytest.raises(ValueError, match="CUDA"):
         cuda_post.postprocess_batch_cuda(m, fm)
+
+
+@pytest.mark.parametrize("name", ["mpii_r18_384", "coco_r18_384_crowded"])
+def test_edge_case_maps(name):
+    """The kernel's edge-case maps are what they claim: ``empty`` keeps
+    nothing; ``chain`` puts every proposal above the threshold and greedy NMS
+    keeps every other cell of each row."""
+    m = get_config(name).model
+    H, W = m.outsize
+    for kind in EDGE_KINDS:
+        fm = torch.from_numpy(feature_map_case(m, 2, 3, kind))
+        _, props = dec.decode(m, fm)
+        keep = nmsops.nms_batch(m, props).keep
+        if kind == "empty":
+            assert not keep.any()
+        else:
+            assert bool((props.score > m.detection_thresh).all())
+            alternate = torch.arange(W) % 2 == 0
+            assert torch.equal(keep, alternate[None, None, :, None].expand(
+                keep.shape))
+
+
+def test_needed_bytes_hand_count():
+    """``cuda_post.needed_bytes`` on a tiny_test map counted by hand. The
+    grid is 2×2 and the window 3×3, so from each of the 4 cells every cell
+    is exactly one window offset away."""
+    m = get_config("tiny_test").model
+    K1 = m.num_classes
+    fm = feature_map_case(m, 2, 0, "empty")   # image 1 keeps nothing
+    fm[..., 4 * K1:6 * K1] = -5.0             # sub-pixel boxes: no overlaps
+    fm[0, 0, 0, [2, K1 + 2]] = 20.0           # class 2 kept at cell (0, 0)
+    fm[0, 0, 0, [5, K1 + 5]] = 20.0           # class 5 kept at (0, 0) and
+    fm[0, 1, 1, [5, K1 + 5]] = 20.0           # (1, 1)
+    # per image: 4 cells × 6·17 proposal channels × 4 B = 1632 B, and
+    # People: 4 slots × 17 × (8 + 16 + 4 + 1) B + 4 × (1 + 4) B = 1992 B;
+    # limb reads of image 0: limb 3→2 from 4 cells × 1 kept destination,
+    # limb 4→5 from 4 cells × 2 kept destinations, 4 B each
+    assert [d for _, d in m.edges].count(2) == 1
+    assert [d for _, d in m.edges].count(5) == 1
+    want = 2 * (1632 + 1992) + 4 * (4 * 1 + 4 * 2)
+    assert cuda_post.needed_bytes(m, torch.from_numpy(fm)) == want
+
+
+def test_stage_us_reads_the_stamps():
+    stamps = torch.tensor([[0, 1000, 3000, 3000, 7000, 8000, 8500, 9500],
+                           [0, 3000, 4000, 5000, 7000, 9000, 9500, 10500]])
+    us = cuda_post.stage_us(stamps)
+    assert list(us) == list(cuda_post.STAGES)
+    assert list(us.values()) == [2.0, 1.5, 0.5, 3.0, 1.5, 0.5, 1.0]

@@ -67,3 +67,24 @@ def test_kernel_rejects_bad_input(device):
         cuda_warp.affine_warp_cuda(imgs, mats[:-1])
     with pytest.raises(ValueError):
         cuda_warp.affine_warp_cuda(imgs[..., None], mats)
+
+
+@pytest.mark.parametrize("shape", [
+    (6, 64, 97, 3),      # a width no tile or vector divides
+    (6, 64, 97, 1),
+    (6, 64, 97, 4),
+    (1, 384, 384, 3),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_on_edge_shapes(device, shape, dtype):
+    B, H, W, C = shape
+    x = torch.from_numpy(np.random.default_rng(W * C + B).random(
+        shape, np.float32)).to(device, dtype)
+    c = torch.tensor([W / 2.0, H / 2.0])
+    a, s, t, f = zip(*CASES[:B])
+    mats, _ = make_affine(c, c, torch.tensor(a), torch.tensor(s),
+                          torch.tensor([[v, -v] for v in t]), torch.tensor(f))
+    mats = mats.to(device)
+    got = cuda_warp.affine_warp_cuda(x, mats)
+    torch.cuda.synchronize()
+    assert torch.equal(got, affine_warp_separable_plain(x, mats))
