@@ -12,11 +12,15 @@ Phases, each raising on failure:
                ``ppn_warp_kernel`` (ppn_tpu_torch/csrc/warp.cu);
   3. post kernel — against its plain PyTorch version on the card:
                tiny_test, mpii_r18_384 at B=1, 8, 128 and coco_r18_384_crowded
-               at B=128 on the ``normal``, ``sparse`` and ``ties`` maps, and
-               the edge cases: no proposal above the threshold (``empty``),
-               every proposal above it in NMS chains (``chain``, MPII and
-               COCO), B=133 (more CTAs than SMs); every decision field
-               bitwise equal, float fields within 4 ulps;
+               at B=128 on the ``normal``, ``sparse``, ``ties`` and ``nan``
+               maps (``nan``: 1% of the limb logits and a few proposal
+               logits NaN), the edge cases: no proposal above the threshold
+               (``empty``), every proposal above it in NMS chains
+               (``chain``, MPII and COCO), B=133 (more CTAs than SMs), and
+               the NaN window case (``nan_window_case``: one NaN limb logit
+               beside its window's winner, so no winner) on all three
+               configs; every decision field bitwise equal, float fields
+               within 4 ulps (NaN where the other is NaN);
   4. warp kernel — against its plain PyTorch version on the card, bitwise:
                mpii_r18_384 384² at B=32 with matrices drawn by
                ``sample_params`` and at B=6 with the unit tests' six
@@ -35,29 +39,50 @@ Phases, each raising on failure:
                input needs), and its stage split from the kernel's
                %globaltimer stamps at B=1 and B=128 on the main-path map and
                on the ``normal`` map;
-  7. train step, card against CPU — one ``train_step`` of tiny_test in f32
+  7. flip-TTA — ``Predictor.from_npz(..., flip_tta=True)``, PCKh on the same
+               protocol: 0.9894 ± 3e-3 over 378 joints (the JAX package's
+               TTA on its CPU), one post launch per predict call; then the
+               median of 20 B=128 TTA predicts;
+  8. B=1 latency — ``predict_single`` on uint8 384² images, p50 and p90 of
+               200 calls after warm-up, without and with TTA, and the split
+               of one call: upload, forward, post (kernel device time and
+               the wrapper's host time), download;
+  9. server   — ``apps/serve.main`` self-test on the snapshot (64 requests,
+               8 client threads, max batch 32, 5 ms window): every request
+               bitwise equal to a direct predict at a bucket the server used,
+               and one post launch per predict call (warm-up, batches, the
+               check's direct predicts);
+ 10. video    — ``apps/video.main`` on 64 synthetic 720p frames at 30 fps
+               with the on-device resize, pipelined and with
+               ``--no-overlap``: one post launch per frame (the warm-up
+               frame besides); the first frame's People through the kernel
+               equal to the plain pipeline's (resize, model,
+               ``postprocess_batch_plain``) in every decision field;
+ 11. train step, card against CPU — one ``train_step`` of tiny_test in f32
                (TF32 off), augmentation off, from the same parameters on
                both: loss terms within rel 1e-4;
-  8. training path — mpii_r18_384 at B=32, bf16, augmentation on, 256
+ 12. training path — mpii_r18_384 at B=32, bf16, augmentation on, 256
                synthetic images in the port's ``DeviceCache``, fine-tuning
                the committed MPII snapshot through ``Trainer.run`` for 30
                steps into a fresh checkpoint directory: finite losses, one
                warp launch per step, a new ``Trainer`` resumes the step and
                the parameters bitwise, ``Trainer.evaluate`` gives PCKh on
                the 16-image protocol through the post kernel;
-  9. training times — the median step time over 20 steps and the
+ 13. training times — the median step time over 20 steps and the
                CUDA-event times of augment, encode, forward+backward and
                optimizer+EMA over 10 steps;
- 10. overfit  — mpii_r18_384 from a fresh init on 8 fixed images,
+ 14. overfit  — mpii_r18_384 from a fresh init on 8 fixed images,
                augmentation off, constant lr 0.007, 60 steps: the mean
                loss_total of the last 10 steps under half the first's;
- 11. warp kernel times at B=32 bf16 (a CUDA graph of 50 launches, and back
+ 15. warp kernel times at B=32 bf16 (a CUDA graph of 50 launches, and back
                to back) beside its plain version and its bound;
- 12. report  — the kernels line, then the device line last.
+ 16. report  — the serving slice's numbers, the kernels line, then the
+               device line last.
 
 Launch counts are set to 0 just before each path (phase 5 for inference,
-phase 8 for training) and read just after it (phases 6 and 8); comparison
-and timing launches fall outside those windows.
+7 for TTA, 8 for B=1, 9 for the server, 10 for video, 12 for training) and
+read just after it; comparison and timing launches fall outside those
+windows.
 """
 
 from __future__ import annotations
@@ -80,6 +105,11 @@ import torch
 # H100 SXM data-sheet HBM rate, bytes/s
 HBM_BYTES_PER_S = 3.35e12
 PINNED_PCKH, PINNED_JOINTS = 0.9921, 378
+# flip-TTA on the same protocol: the JAX package's value on its CPU
+# (train/steps.make_forward(flip_tta=True) through eval/runner.evaluate_pckh)
+PINNED_TTA_PCKH = 0.98942
+LATENCY_CALLS = 200
+VIDEO_FRAMES = 64
 ULP_LIMIT = 4   # σ and box floats: same formula on both sides, so 0 is
                 # expected; 4 leaves room for a different expf rounding
 DECISIONS = ("kp_cell", "kp_valid", "valid", "num_kp")
@@ -115,8 +145,9 @@ def compare(got, want) -> tuple[bool, int, float]:
     ulp, err = 0, 0.0
     for f in FLOATS:
         g, w = getattr(got, f).cpu().numpy(), getattr(want, f).cpu().numpy()
-        ulp = max(ulp, max_ulp(g, w))
-        err = max(err, float(np.abs(g - w).max(initial=0.0)))
+        ulp = max(ulp, max_ulp(g, w))       # a lone NaN counts as 2**32
+        d = np.abs(g - w)
+        err = max(err, float(np.where(np.isnan(d), 0.0, d).max(initial=0.0)))
     return equal, ulp, err
 
 
@@ -154,6 +185,43 @@ def graph_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def events_ms(fn, reps: int) -> float:
+    """Median over `reps` single calls of the CUDA-event time around one
+    call (for a call the host cannot keep ahead of, its enqueue time)."""
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms)
+
+
+def percentiles_ms(fn, calls: int) -> tuple[float, float]:
+    """p50 and p90 of the host-clock time of `calls` calls of `fn`, each
+    ending with its results on the host."""
+    lat = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        lat.append(1e3 * (time.perf_counter() - t0))
+    return (float(np.percentile(lat, 50)), float(np.percentile(lat, 90)))
+
+
+def quiet_call(fn, *args):
+    """fn(*args) with its standard output captured: (result, the output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
 
 
 def host_us(fn, reps: int) -> float:
@@ -297,11 +365,13 @@ def main() -> int:
     from ppn_tpu_torch.data.synthetic import (SyntheticPoseDataset,
                                               heldout_dataset)
     from ppn_tpu_torch.eval.runner import evaluate_pckh
-    from ppn_tpu_torch.inference import Predictor
+    from ppn_tpu_torch.inference import Predictor, fetch_async, wait_host
     from ppn_tpu_torch.ops import cuda_build, cuda_post, cuda_warp
-    from ppn_tpu_torch.ops.image import affine_warp_separable_plain
+    from ppn_tpu_torch.ops.image import (affine_warp_separable_plain,
+                                         resize_bilinear)
     from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
-    from ppn_tpu_torch.testing import KINDS, feature_map_case
+    from ppn_tpu_torch.testing import (KINDS, feature_map_case,
+                                       nan_window_case)
     from ppn_tpu_torch.train import steps as st
     from ppn_tpu_torch.train.trainer import Trainer
 
@@ -349,6 +419,19 @@ def main() -> int:
             f"persons={int(want.valid.sum())}")
         if not equal or ulp > ULP_LIMIT:
             raise AssertionError(f"kernel disagrees: {name} B={B} {kind}")
+    for name in ("tiny_test", "mpii_r18_384", "coco_r18_384_crowded"):
+        m = get_config(name).model
+        fm = torch.from_numpy(nan_window_case(m)).to(dev)
+        got = cuda_post.postprocess_batch_cuda(m, fm)
+        want = postprocess_batch_plain(m, fm)
+        torch.cuda.synchronize()
+        equal, ulp, err = compare(got, want)
+        d = m.edges[next(i for i, (s, _) in enumerate(m.edges) if s == 0)][1]
+        cell, score = got.kp_cell[0, 0, d].tolist(), float(got.kp_score[0, 0, d])
+        log(f"[kernel] {name} NaN window case: decisions_equal={equal} "
+            f"max_ulp={ulp}; slot 0 class {d}: cell {cell} score {score}")
+        if not equal or ulp > ULP_LIMIT or cell != [0, 0] or score != 0.0:
+            raise AssertionError(f"kernel disagrees: {name} NaN window case")
 
     # ---- 4. warp kernel against plain on the card ---------------------------
     mpii = get_config("mpii_r18_384")
@@ -483,9 +566,138 @@ def main() -> int:
     with torch.no_grad():
         fwd_ms = time_ms(lambda: pred.model(x), 10)
     log(f"[time] B={B}: model forward {fwd_ms:.3f} ms | {card}")
-    del pred, fm128, fm1, x
+    del fm128, x
 
-    # ---- 7. one train step on the card against the CPU ----------------------
+    # ---- 7. flip-TTA: PCKh through the kernel, B=128 throughput -------------
+    tpred = Predictor.from_npz(cfg, SNAPSHOT, flip_tta=True)
+    tcalls = 0
+
+    def tpredict(images):
+        nonlocal tcalls
+        tcalls += 1
+        return tpred.predict(images)
+
+    cuda_post.LAUNCHES = 0
+    summary = evaluate_pckh(cfg, tpredict, val, max_images=16, batch_size=8)
+    tta_launches = cuda_post.LAUNCHES
+    tta_pckh, tta_joints = summary["pckh/mean"], summary["pckh/num_joints"]
+    log(f"[tta] flip-TTA PCKh {tta_pckh:.5f} over {tta_joints:.0f} joints "
+        f"(pinned {PINNED_TTA_PCKH} over {PINNED_JOINTS}); ppn_post_kernel "
+        f"launches {tta_launches} over {tcalls} predict calls")
+    if (abs(tta_pckh - PINNED_TTA_PCKH) >= 3e-3
+            or tta_joints != PINNED_JOINTS or tta_launches != tcalls):
+        raise AssertionError(f"flip-TTA PCKh {tta_pckh} / {tta_joints} "
+                             f"joints, {tta_launches} launches in {tcalls} "
+                             "calls")
+    for _ in range(3):
+        tpred.predict(images)
+    tta_ms = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tpred.predict(images)
+        end.record()
+        torch.cuda.synchronize()
+        tta_ms.append(start.elapsed_time(end))
+    tta_med = statistics.median(tta_ms)
+    log(f"[tta] B={B} TTA predict: median {tta_med:.3f} ms over "
+        f"{len(tta_ms)} calls (min {min(tta_ms):.3f}, max {max(tta_ms):.3f})"
+        f" = {1e3 * B / tta_med:.1f} img/s (without TTA {1e3 * B / med:.1f}"
+        f") | {card}")
+
+    # ---- 8. B=1 latency -----------------------------------------------------
+    one = images[0]
+    latency = {}
+    for label, p_ in (("plain", pred), ("tta", tpred)):
+        for _ in range(10):
+            p_.predict_single(one)
+        cuda_post.LAUNCHES = 0
+        p50, p90 = percentiles_ms(lambda: p_.predict_single(one),
+                                  LATENCY_CALLS)
+        latency[label] = {"p50_ms": p50, "p90_ms": p90,
+                          "launches": cuda_post.LAUNCHES}
+        log(f"[b1] predict_single, {label}: p50 {p50:.3f} ms, p90 "
+            f"{p90:.3f} ms over {LATENCY_CALLS} calls; ppn_post_kernel "
+            f"launches {cuda_post.LAUNCHES} | {card}")
+        if cuda_post.LAUNCHES != LATENCY_CALLS:
+            raise AssertionError(f"{cuda_post.LAUNCHES} post launches in "
+                                 f"{LATENCY_CALLS} B=1 calls")
+    x1_host = torch.from_numpy(one[None])
+    x1 = x1_host.to(dev)
+    with torch.no_grad():
+        split = {"h2d": events_ms(lambda: x1_host.to(dev), 50),
+                 "forward": events_ms(lambda: pred.model(x1), 50)}
+        fm1 = pred.model(x1)
+    call1 = functools.partial(cuda_post.postprocess_batch_cuda, m, fm1)
+    split["post_kernel_device"] = graph_ms(call1, 50)
+    split["post_wrapper_host_us"] = host_us(call1, 200)
+    split["post_eager"] = events_ms(call1, 50)
+    ppl1 = call1()
+    split["d2h"] = events_ms(lambda: wait_host(*fetch_async(ppl1)), 50)
+    log("[b1] split of one B=1 call (median CUDA-event ms of 50; the "
+        "kernel's as a CUDA-graph replay; the wrapper's host µs): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" | {card}")
+
+    # ---- 9. server: micro-batched requests, verified bitwise ----------------
+    from ppn_tpu_torch.apps import serve, video
+
+    requests, max_batch = 64, 32
+    cuda_post.LAUNCHES = 0
+    rc, printed = quiet_call(serve.main, [
+        "--config", "mpii_r18_384", "--ckpt-dir", SNAPSHOT, "--selftest",
+        str(requests), "--threads", "8", "--max-batch", str(max_batch),
+        "--window-ms", "5", "--json"])
+    serve_launches = cuda_post.LAUNCHES
+    server = json.loads(printed.strip().splitlines()[-1])
+    # one launch per predict call: the warm-up runs each bucket 1..max_batch
+    # for uint8 and f32, the server one per batch, and the self-test's
+    # check one per chunk of the requests at each bucket it saw
+    warm = 2 * max_batch.bit_length()
+    served = sum(server["batches_by_size"].values())
+    direct = sum(-(-requests // int(b)) for b in server["batches_by_size"])
+    server["launches"] = served
+    log(f"[serve] {json.dumps(server)} | {card}")
+    log(f"[serve] ppn_post_kernel launches {serve_launches} = {warm} "
+        f"warm-up + {served} batches served + {direct} direct predicts of "
+        "the check")
+    if (rc != 0 or server["mismatches"] != 0
+            or serve_launches != warm + served + direct):
+        raise AssertionError(f"server self-test failed: rc {rc}, "
+                             f"{serve_launches} launches, {server}")
+
+    # ---- 10. video: 720p frames, on-device resize ---------------------------
+    vcfg = get_config("mpii_r18_384")    # the video app's thresholds
+    frame0 = next(video.synthetic_frames(1, fps=0))
+    got = video.make_video_pipeline(vcfg, pred.model)(frame0)
+    with torch.no_grad():
+        img = resize_bilinear(torch.from_numpy(frame0).to(dev).float() / 255.0,
+                              vcfg.model.insize)
+        want = postprocess_batch_plain(vcfg.model, pred.model(img[None]))
+    want = type(want)(*(t[0] for t in want))
+    equal, ulp, err = compare(got, want)
+    log(f"[video] first 720p frame through the pipeline against the plain "
+        f"pipeline: decisions_equal={equal} max_ulp={ulp} persons "
+        f"{int(want.valid.sum())}")
+    if not equal or ulp > ULP_LIMIT:
+        raise AssertionError("video pipeline disagrees with the plain one")
+    videos = {}
+    for label, extra in (("overlap", []), ("no_overlap", ["--no-overlap"])):
+        cuda_post.LAUNCHES = 0
+        summary_v, _ = quiet_call(video.main, [
+            "--config", "mpii_r18_384", "--ckpt-dir", SNAPSHOT, "--source",
+            "synthetic", "--frames", str(VIDEO_FRAMES), "--json", *extra])
+        summary_v["launches"] = cuda_post.LAUNCHES
+        videos[label] = summary_v
+        log(f"[video] {label}: {json.dumps(summary_v)} (launches include "
+            f"the warm-up frame) | {card}")
+        if summary_v["launches"] != summary_v["frames"] + 1:
+            raise AssertionError(f"video: {summary_v['launches']} post "
+                                 f"launches for {summary_v['frames']} frames"
+                                 " and the warm-up")
+    del pred, tpred, fm1
+
+    # ---- 11. one train step on the card against the CPU ----------------------
     tcfg = dataclasses.replace(tiny, train=dataclasses.replace(
         tiny.train, dtype="float32", lr_schedule="constant",
         warmup_steps=0, learning_rate=0.05, ema_decay=0.9))
@@ -504,7 +716,7 @@ def main() -> int:
     if max(rel.values()) > 1e-4:
         raise AssertionError(f"card and CPU train steps disagree: {rel}")
 
-    # ---- 8. training path: fine-tune at full width, resume, evaluate --------
+    # ---- 12. training path: fine-tune at full width, resume, evaluate --------
     ckpt_dir = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(
         ROOT, "build"))
     try:
@@ -553,7 +765,7 @@ def main() -> int:
         if not math.isfinite(summary["pckh/mean"]):
             raise AssertionError("non-finite PCKh")
 
-        # ---- 9. training times ----------------------------------------------
+        # ---- 13. training times ----------------------------------------------
         state = trainer.state
         step_ms = []
         for _ in range(20):
@@ -581,7 +793,7 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    # ---- 10. overfit 8 fixed images from a fresh init ------------------------
+    # ---- 14. overfit 8 fixed images from a fresh init ------------------------
     ocfg = dataclasses.replace(mpii, train=dataclasses.replace(
         mpii.train, lr_schedule="constant", warmup_steps=0,
         learning_rate=mpii.train.learning_rate))
@@ -597,7 +809,7 @@ def main() -> int:
         raise AssertionError("the overfit check did not halve the loss")
     del ostate
 
-    # ---- 11. warp kernel times at the training path's shape -----------------
+    # ---- 15. warp kernel times at the training path's shape -----------------
     xw = cache.data["image"][:32].to(torch.float32).div(255.0).to(
         torch.bfloat16)
     mw = warp_matrices(mpii, 32, dev, seed=32)
@@ -609,9 +821,15 @@ def main() -> int:
         f"graph of 50 launches; back to back {w_eager_ms:.4f} ms), plain "
         f"{wp_ms:.3f} ms, bound {w_bound:.6f} ms (bytes) | {card}")
 
-    # ---- 12. report ----------------------------------------------------------
+    # ---- 16. report ----------------------------------------------------------
     k_ms, p_ms, bound, whole, eager_ms, call_us = times[B]
     k1_ms, p1_ms, bound1, whole1, eager1_ms, call1_us = times[1]
+    log(json.dumps({"serving_slice": {
+        "tta_pckh": tta_pckh, "tta_joints": tta_joints,
+        "tta_launches": tta_launches, "tta_predict_calls": tcalls,
+        "tta_predict_ms_b128": tta_med, "tta_img_per_s_b128": 1e3 * B / tta_med,
+        "b1_latency": latency, "b1_split_ms": split, "server": server,
+        "video": videos}}))
     log(card)   # the nvidia-smi name,power.limit line, as it prints it
     log(json.dumps({"kernels": [{
         "name": "ppn_post_kernel", "route": "cuda",

@@ -37,20 +37,36 @@
 //               atomicMax. Among in-frame offsets a lower offset is a lower
 //               destination cell, so the largest key is the sequential rule's
 //               winner: the largest value, ties by lower offset; key 0 is
-//               "no winner". A NaN logit never wins (the plain version's
-//               amax instead drops that window: ROADMAP, queue 3);
+//               "no winner" (a NaN logit is settled in the walk);
 //   5. seeds    the top-P instance proposals (lax.top_k's order: value
 //               descending, ties by lower index), each cell's rank counted
 //               by a warp;
 //   6. walk     one thread per person slot over the L edges, decoding the
-//               keys;
+//               keys. A NaN limb logit at any in-frame offset makes the
+//               plain version's window max NaN, so that row has no winner,
+//               whatever its destinations keep. Only the rows the walk
+//               consults matter, so the walk records them, the warps scan
+//               the listed rows' in-frame logits (NW contiguous floats a
+//               row) for a NaN, and each slot is walked again on the
+//               recorded keys, invalidating the subtree below a row holding
+//               one;
 //   7. write    the box gather and the min-keypoint filter, as People fields.
 //
 // Bound: bytes. The kernel must read the 6·K1 proposal channels of every
-// cell and the limb logits whose destination keeps a score, and write
-// People. No single PyTorch call computes this function (library time:
-// none). The listed limb logits are read from scattered source cells, 4
-// bytes of each 32-byte sector; they are few on a model's map.
+// cell, the limb logits whose destination keeps a score, and every
+// in-frame limb logit of a row the walk consults that could have a winner
+// (to rule out a NaN), and write People (ops/cuda_post.py needed_bytes).
+// No single PyTorch call computes this function (library time: none). The
+// logits toward kept destinations are read from scattered source cells, 4
+// bytes of each 32-byte sector; they are few on a model's map. Scanning
+// every row that has a winner instead (about a tenth of the L·N rows on the
+// main-path map) doubled the kernel's time on the H100.
+//
+// NaN: a NaN proposal logit gives a NaN score, which fails the
+// detection_thresh test here as in the plain version; a NaN box corner
+// makes the plain version's overlap test false (torch.minimum, maximum and
+// clamp_min propagate NaN), and here the union, NaN with it, is clamped by
+// a comparison that keeps NaN instead of fmaxf, which drops it.
 //
 // Numerics: build with --fmad=false and without --use_fast_math. The decision
 // arithmetic (x0 = cx − w/2, union = a + a' − inter) would otherwise contract
@@ -80,10 +96,13 @@ struct Smem {
   size_t score, cx, cy, bw, bh;      // [K1][N] by proposal
   size_t ord, x0, y0, x1, y1, area;  // [K1][N] by class and rank
   size_t cnt, moff;                  // [K1], [K1 + 1]
-  size_t mask;                       // at most [K1][N][ceil(N/32)]
+  size_t mask;  // at most [K1][N][ceil(N/32)]; in stage 6, the list of
+                // consulted (slot, limb) pairs [P·L]
   size_t lists;  // stage 2: candidate index and score lists [2][K1][N];
                  // stage 3 on: window keys [L][N] (64-bit)
-  size_t nent, ent;                  // [1], (limb, kept cell) [L·N]
+  size_t nent, ent;  // [1], (limb, kept cell) [L·N]; in stage 6, the
+                     // count of consulted rows and the row each (slot,
+                     // limb) of the walk consults [P·L]
   size_t kpsc, kpcell, kpok, pvalid, numkp;  // [P][K1] ×3, [P] ×2
   size_t total;
 };
@@ -132,6 +151,11 @@ __device__ __forceinline__ void stamp(int64_t* clocks, int b, int k) {
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// torch.clamp: NaN stays NaN (fminf and fmaxf would drop it)
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
 }
 
 __global__ void __launch_bounds__(PPN_THREADS, 1)
@@ -200,8 +224,8 @@ ppn_post_kernel(const float* __restrict__ fm,
       const float xo = sigmoid_f(v[u][2]), yo = sigmoid_f(v[u][3]);
       float wo, ho;
       if (p.size_exp) {
-        wo = expf(fminf(fmaxf(v[u][4], -10.0f), 4.0f));
-        ho = expf(fminf(fmaxf(v[u][5], -10.0f), 4.0f));
+        wo = expf(clamp_nan(v[u][4], -10.0f, 4.0f));
+        ho = expf(clamp_nan(v[u][5], -10.0f, 4.0f));
       } else {
         wo = sigmoid_f(v[u][4]);
         ho = sigmoid_f(v[u][5]);
@@ -303,8 +327,10 @@ ppn_post_kernel(const float* __restrict__ fm,
           const float ih =
               fmaxf(fminf(ay1, s_y1[o + j]) - fmaxf(ay0, s_y0[o + j]), 0.0f);
           const float inter = iw * ih;
+          // a NaN corner makes an area, so the union, NaN: no overlap
           const float uni = s_area[o + j] + area_a - inter;
-          if (inter > p.nms_t * fmaxf(uni, 1e-9f)) bits |= 1u << (j - 32 * w);
+          const float den = uni < 1e-9f ? 1e-9f : uni;
+          if (inter > p.nms_t * den) bits |= 1u << (j - 32 * w);
         }
       }
       s_mask[s_moff[c] + a * nwc + w] = bits;
@@ -428,19 +454,89 @@ ppn_post_kernel(const float* __restrict__ fm,
   stamp(clocks, b, 5);
 
   // ---- 6. walk the limb tree, one thread per person slot ------------------
+  // 6a. the walk on the keys, recording the row each (slot, limb) consults
+  //     where the source is valid and the row has a winner (else -1)
+  if (tid == 0) *s_nent = 0;  // stage 4 has read it: now the list's count
   for (int q = tid; q < P; q += nth) {
     int* cell = s_kpcell + q * K1;
     float* sc = s_kpsc + q * K1;
     int* ok = s_kpok + q * K1;
     for (int c = 1; c < K1; ++c) { cell[c] = 0; sc[c] = 0.0f; ok[c] = 0; }
     for (int l = 0; l < L; ++l) {
-      const int s = p.src[l], d = p.dst[l];
-      const unsigned long long key = s_key[l * N + cell[s]];
+      const int s = p.src[l], d = p.dst[l], row = l * N + cell[s];
+      const unsigned long long key = s_key[row];
       const bool o = ok[s] && key != 0ull;  // the best value is > 0
       const int nb = o ? (int)(0xffffffffu - (uint32_t)key) : 0;
+      s_ent[q * L + l] = o ? row : -1;
       cell[d] = nb;
       sc[d] = o ? s_score[d * N + nb] : 0.0f;
       ok[d] = o;
+    }
+  }
+  __syncthreads();
+  // 6b. a NaN limb logit at an in-frame offset of a consulted row means that
+  //     row has no winner (the plain version's window max is NaN). The
+  //     consulted (slot, limb) pairs are listed (in the mask's space, free
+  //     since stage 3), then each warp loads two rows' in-frame logits at a
+  //     time (NW contiguous floats a row, the lanes across them) and marks a
+  //     row holding a NaN with -2. The list keeps the warps idle where the
+  //     walk consults nothing: a loop over all P·L pairs with the loads in
+  //     it cost ~12 µs per CTA on the H100 even with no row to read.
+  {
+    int* chk = reinterpret_cast<int*>(s_mask);
+    for (int r0 = warp * 32; r0 < P * L; r0 += nth) {
+      const int r = r0 + lane;
+      const uint32_t m = __ballot_sync(FULL, r < P * L && s_ent[r] >= 0);
+      int base = 0;
+      if (lane == 0 && m) base = atomicAdd(s_nent, __popc(m));
+      base = __shfl_sync(FULL, base, 0);
+      if ((m >> lane) & 1u) chk[base + __popc(m & ((1u << lane) - 1u))] = r;
+    }
+    __syncthreads();
+    int jdy[4], jdx[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int j = lane + 32 * s;
+      jdy[s] = j / p.Wl - ch;
+      jdx[s] = j % p.Wl - cw;
+    }
+    const int nchk = *s_nent;
+    for (int i0 = warp; i0 < nchk; i0 += 2 * nwarps) {
+      int ids[2], rows[2];
+      bool bad[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = i0 + u * nwarps;
+        ids[u] = i < nchk ? chk[i] : -1;
+        rows[u] = ids[u] >= 0 ? s_ent[ids[u]] : -1;
+        const int row = rows[u] < 0 ? 0 : rows[u];
+        const int l = row / N, n = row - l * N, ny = n / W, nx = n - ny * W;
+        const float* e = f + (size_t)n * p.C + 6 * K1 + l * NW;
+        bad[u] = false;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int j = lane + 32 * s, y = ny + jdy[s], x = nx + jdx[s];
+          if (rows[u] >= 0 && j < NW && y >= 0 && y < H && x >= 0 && x < W)
+            bad[u] |= isnan(__ldg(e + j));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        if (__any_sync(FULL, bad[u]) && lane == 0) s_ent[ids[u]] = -2;
+    }
+  }
+  __syncthreads();
+  // 6c. below a row without a winner nothing is valid: redo each slot's
+  //     walk in edge order on the recorded results, then the person filter.
+  //     Where the source stays valid its cell is unchanged, so the recorded
+  //     row is the one the plain walk consults.
+  for (int q = tid; q < P; q += nth) {
+    int* cell = s_kpcell + q * K1;
+    float* sc = s_kpsc + q * K1;
+    int* ok = s_kpok + q * K1;
+    for (int l = 0; l < L; ++l) {
+      const int s = p.src[l], d = p.dst[l];
+      if (!ok[s] || s_ent[q * L + l] == -2) { cell[d] = 0; sc[d] = 0.0f; ok[d] = 0; }
     }
     int nk = 0;
     for (int c = 1; c < K1; ++c) nk += ok[c];
@@ -490,8 +586,10 @@ int ppn_post_launch(const float* fm, int32_t* kp_cell, float* kp_box,
                     float img_w, float img_h, float det_t, float nms_t,
                     int min_kp, int size_exp, const int32_t* edges,
                     int64_t* clocks, void* stream) {
+  // the walk's list of consulted rows (P·L) lives in the mask's space
+  const long long mask_words = (long long)K1 * H * W * ((H * W + 31) / 32);
   if (B < 1 || L < 1 || L > PPN_MAX_LIMBS || P > H * W || H * W > 0xffff ||
-      Hl * Wl > PPN_MAX_WINDOW)
+      Hl * Wl > PPN_MAX_WINDOW || (long long)P * L > mask_words)
     return (int)cudaErrorInvalidValue;
   if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
   PostParams p;

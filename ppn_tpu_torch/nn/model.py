@@ -51,13 +51,17 @@ class PoseProposalNet(nn.Module):
             raise ValueError(f"unknown backbone {cfg.backbone!r}")
         self.backbone = _BACKBONES[cfg.backbone](dtype=dtype)
         self.head = PPNHead(cfg, self.backbone.out_features, dtype=dtype)
+        # ImageNet statistics as buffers outside the state dict: made on
+        # the host per call, they would be copied with a stream sync
+        self.register_buffer("mean", torch.tensor(self.MEAN),
+                             persistent=False)
+        self.register_buffer("std", torch.tensor(self.STD), persistent=False)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         if images.dtype == torch.uint8:
             images = images.to(torch.float32) / 255.0
-        mean = torch.tensor(self.MEAN, dtype=images.dtype, device=images.device)
-        std = torch.tensor(self.STD, dtype=images.dtype, device=images.device)
-        x = (images - mean) / std                        # f32, NHWC
+        x = ((images - self.mean.to(images.dtype))
+             / self.std.to(images.dtype))                # f32, NHWC
         # NHWC → NCHW view: the memory stays channels_last for cuDNN
         f = self.backbone(x.to(self.dtype).permute(0, 3, 1, 2))
         return self.head(f).permute(0, 2, 3, 1).to(torch.float32).contiguous()

@@ -20,7 +20,7 @@ from ppn_tpu_torch.configs import PPNConfig
 from ppn_tpu_torch.ops import cuda_build
 from ppn_tpu_torch.ops import decode as dec
 from ppn_tpu_torch.ops import nms as nmsops
-from ppn_tpu_torch.ops.parse import People, window_tables
+from ppn_tpu_torch.ops.parse import People, parse_batch, window_tables
 
 SOURCE = "post.cu"
 
@@ -133,19 +133,32 @@ def output_bytes(cfg: PPNConfig) -> int:
 
 
 def needed_bytes(cfg: PPNConfig, feature_map: torch.Tensor) -> int:
-    """Bytes ppn_post_kernel must move for this (B, H', W', C) map: the 6·K1
-    proposal channels of every cell; 4 bytes for each (image, cell, limb,
-    offset) whose destination lies in the frame and keeps a post-NMS score
-    > 0 (no other limb logit can change the result); and the outputs. The
-    post-NMS scores come from the plain version."""
+    """Bytes ppn_post_kernel must move for this (B, H', W', C) map, each
+    read once: the 6·K1 proposal channels of every cell; 4 bytes for each
+    (image, cell, limb, offset) whose neighbour lies in the frame and
+    either keeps a post-NMS score > 0 (no other destination can win) or
+    belongs to a row the limb walk consults that holds such a destination
+    (every in-frame logit of that row must be seen, since one NaN leaves
+    the row without a winner); and the outputs. The post-NMS scores and the
+    walk come from the plain version."""
     B = feature_map.shape[0]
     H, W = cfg.outsize
     N, K1 = H * W, cfg.num_classes
-    _, props = dec.decode(cfg, feature_map)
-    score = nmsops.nms_batch(cfg, props).score.reshape(B, N, K1)
-    kept = score[:, :, [d for _, d in cfg.edges]] > 0.0          # (B, N, L)
-    _, nbrv, nbrc = window_tables(cfg)                            # (NW, N)
     dev = feature_map.device
+    act, props = dec.decode(cfg, feature_map)
+    nms = nmsops.nms_batch(cfg, props)
+    kept = nms.score.reshape(B, N, K1)[:, :, [d for _, d in cfg.edges]] > 0.0
+    _, nbrv, nbrc = window_tables(cfg)                            # (NW, N)
     inside = torch.from_numpy(nbrv).to(dev)[None, :, :, None]
-    limb_reads = int((kept[:, torch.from_numpy(nbrc).to(dev)] & inside).sum())
-    return B * (N * 6 * K1 * 4 + output_bytes(cfg)) + 4 * limb_reads
+    toward_kept = inside & kept[:, torch.from_numpy(nbrc).to(dev)]  # (B, NW, N, L)
+    # the rows the walk consults: limb l from its source class's cell in
+    # every slot where that keypoint is valid (its score is then > 0)
+    ppl = parse_batch(cfg, act, props, nms)
+    cell = ppl.kp_cell[..., 0].long() * W + ppl.kp_cell[..., 1].long()
+    consulted = torch.zeros_like(kept)                             # (B, N, L)
+    for l, (s, _) in enumerate(cfg.edges):
+        b, q = torch.nonzero(ppl.kp_score[:, :, s] > 0.0, as_tuple=True)
+        consulted[b, cell[b, q, s], l] = True
+    scanned = consulted & toward_kept.any(dim=1)
+    reads = toward_kept | (inside & scanned[:, None])
+    return B * (N * 6 * K1 * 4 + output_bytes(cfg)) + 4 * int(reads.sum())

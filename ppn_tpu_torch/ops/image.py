@@ -1,5 +1,5 @@
-"""Affine matrices and the separable affine warp (port of
-``ppn_tpu/ops/image.py``).
+"""Affine matrices, the separable affine warp and the bilinear resize
+(port of ``ppn_tpu/ops/image.py``).
 
 ``affine_warp_separable_plain`` is the plain PyTorch version of
 ``ppn_warp_kernel`` (``csrc/warp.cu``): the CPU path, and the version the
@@ -17,6 +17,7 @@ once, in any order, as the dense einsum's does.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def make_affine(center_in, center_out, angle_rad, scale, translate,
@@ -121,3 +122,18 @@ def affine_warp_separable_plain(images: torch.Tensor,
     u_x = d[:, None] * xs + f[:, None]                            # (B, W)
     yi = e[:, None, None] * ys[:, None] + u_x[:, None, :]         # (B, H, W)
     return _two_taps(tmp16, yi, 1, H).to(images.dtype)
+
+
+def resize_bilinear(image: torch.Tensor, out_size) -> torch.Tensor:
+    """(..., H, W, C) float → (..., H_out, W_out, C) bilinear resize, the
+    port of the JAX package's ``resize_bilinear`` (the video path's
+    720p → insize). ``jax.image.resize(..., "bilinear")`` widens its
+    triangle filter by the scale when it downscales (an antialiasing
+    low-pass), which is ``F.interpolate``'s ``antialias=True``; without it
+    the taps are plain bilinear and the result differs."""
+    *lead, H, W, C = image.shape
+    h, w = out_size
+    x = image.reshape(-1, H, W, C).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=(h, w), mode="bilinear", antialias=True,
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1).reshape(*lead, h, w, C)

@@ -7,7 +7,14 @@ Made with numpy from a seed, so every side gets the same bytes:
     class: few detections, most post-NMS scores exactly 0 (the seed tie
     order of empty slots);
   * ``ties``    — N(0, 2) rounded to integers: exact score ties between
-    cells (NMS order, window first-max and seed ties by lower index).
+    cells (NMS order, window first-max and seed ties by lower index);
+  * ``nan``     — the ``normal`` map with 1% of the limb logits and a few
+    proposal logits (scores and boxes) set to NaN: a window holding a NaN
+    at an in-frame offset has no winner, a NaN score is no candidate and a
+    NaN box overlaps nothing.
+
+``nan_window_case`` is the hand-made case of one NaN limb logit beside the
+winner its window would otherwise have.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import numpy as np
 
 from ppn_tpu_torch.configs import PPNConfig
 
-KINDS = ("normal", "sparse", "ties")
+KINDS = ("normal", "sparse", "ties", "nan")
 EDGE_KINDS = ("empty", "chain")
 
 
@@ -37,6 +44,15 @@ def feature_map_case(cfg: PPNConfig, batch: int, seed: int,
                 fm[b, cells // W, cells % W, K1 + c] = 4.0
     elif kind == "ties":
         fm = np.round(fm)
+    elif kind == "nan":
+        limbs = fm[..., 6 * K1:]
+        limbs[rng.random(limbs.shape) < 0.01] = np.nan
+        per_image = H * W * 6 * K1
+        for b in range(batch):
+            t = rng.choice(per_image, size=max(2, per_image // 500),
+                           replace=False)
+            cell, ch = t // (6 * K1), t % (6 * K1)
+            fm[b, cell // W, cell % W, ch] = np.nan
     elif kind == "empty":
         fm[..., :2 * K1] = -20.0
     elif kind == "chain":
@@ -45,6 +61,32 @@ def feature_map_case(cfg: PPNConfig, batch: int, seed: int,
         raise ValueError(f"unknown case kind {kind!r}; have "
                          f"{KINDS + EDGE_KINDS}")
     return fm.astype(np.float32)
+
+
+def nan_window_case(cfg: PPNConfig) -> np.ndarray:
+    """(1, H', W', C) map: the instance kept at cell (0, 0) and the
+    destination class of its first limb kept at (0, 1) and (1, 1); that
+    limb's logits from (0, 0) are −3, except NaN toward (0, 1) and 3 toward
+    (1, 1). The NaN leaves the row without a winner, so slot 0 gets no
+    keypoint of that class (cell (0, 0), score 0), though (1, 1) alone
+    would win. Boxes are sub-pixel, so NMS keeps every candidate."""
+    H, W = cfg.outsize
+    Hl, Wl = cfg.local_grid_size
+    K1, NW = cfg.num_classes, Hl * Wl
+    if H < 2 or W < 2 or Hl < 3 or Wl < 3:
+        raise ValueError("nan_window_case needs a 2×2 grid and a 3×3 window")
+    fm = np.full((1, H, W, cfg.num_channels), -3.0, np.float32)
+    fm[..., :2 * K1] = -20.0                  # no candidate anywhere ...
+    fm[..., 4 * K1:6 * K1] = -5.0             # ... and sub-pixel boxes
+    limb = next(i for i, (s, _) in enumerate(cfg.edges) if s == 0)
+    d = cfg.edges[limb][1]
+    for y, x, c in ((0, 0, 0), (0, 1, d), (1, 1, d)):
+        fm[0, y, x, [c, K1 + c]] = 20.0
+    ch, cw = Hl // 2, Wl // 2
+    e = fm[0, 0, 0, 6 * K1 + limb * NW:6 * K1 + (limb + 1) * NW]
+    e[ch * Wl + cw + 1] = np.nan              # toward (0, 1)
+    e[(ch + 1) * Wl + cw + 1] = 3.0           # toward (1, 1)
+    return fm
 
 
 def _size_logit(cfg: PPNConfig, frac: float) -> float:
@@ -82,7 +124,13 @@ def _chain(cfg: PPNConfig, fm: np.ndarray, rng) -> np.ndarray:
 
 def max_ulp(a: np.ndarray, b: np.ndarray) -> int:
     """Largest distance in units in the last place between two float32
-    arrays of the same sign pattern (0 where bitwise equal)."""
-    ai = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
-    bi = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    arrays of the same sign pattern (0 where bitwise equal, and where both
+    are NaN, whatever their payloads); a NaN against a number counts as
+    2**32."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    na, nb = np.isnan(a), np.isnan(b)
+    if (na != nb).any():
+        return 2 ** 32
+    ai = np.where(na, np.float32(0), a).view(np.int32).astype(np.int64)
+    bi = np.where(nb, np.float32(0), b).view(np.int32).astype(np.int64)
     return int(np.abs(ai - bi).max(initial=0))

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from ppn_tpu_torch.train.steps import TrainState
+from ppn_tpu_torch.train.steps import TrainState, create_train_state
 
 _NAME = re.compile(r"^ckpt_(\d{8})\.pt$")
 
@@ -84,3 +84,32 @@ class Checkpointer:
 
     def close(self) -> None:
         """Nothing to release."""
+
+
+def load_state(cfg, ckpt_dir: Optional[str] = None,
+               device=None) -> TrainState:
+    """A ``TrainState`` on ``device`` (``cuda`` unless asked otherwise):
+    freshly initialized when ``ckpt_dir`` is None, else restored from the
+    newest ``ckpt_*.pt`` in that directory. Raises ``ValueError`` on a
+    directory of Orbax checkpoints (the JAX package's format, which the
+    port cannot read) and on an inference snapshot (``.npz``, which holds
+    no training state: ``Predictor.from_npz`` reads it), and
+    ``FileNotFoundError`` when there is no checkpoint."""
+    if ckpt_dir and ckpt_dir.endswith(".npz"):
+        raise ValueError(
+            f"{ckpt_dir} is an inference snapshot, not a training "
+            "checkpoint; load it with Predictor.from_npz")
+    state = create_train_state(cfg, device=device)
+    if not ckpt_dir:
+        return state
+    if not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    if Checkpointer(ckpt_dir).restore_latest(state) is None:
+        if any(n.isdigit() and os.path.isdir(os.path.join(ckpt_dir, n))
+               for n in os.listdir(ckpt_dir)):
+            raise ValueError(
+                f"{ckpt_dir} holds Orbax checkpoints written by the JAX "
+                "package, which the port cannot read; export the weights "
+                "with tools/export_snapshot.py and pass the .npz")
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    return state

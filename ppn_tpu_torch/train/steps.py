@@ -16,6 +16,7 @@ not ported.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Dict, Optional
 
@@ -27,6 +28,7 @@ from ppn_tpu_torch.configs import Config
 from ppn_tpu_torch.nn.model import DTYPES, PoseProposalNet
 from ppn_tpu_torch.ops import encode as enc
 from ppn_tpu_torch.ops.augment import augment_batch
+from ppn_tpu_torch.ops.tta import flip_tta_forward
 from ppn_tpu_torch.train.loss import ppn_loss
 
 BATCH_KEYS = ("image", "keypoints", "visible", "bboxes", "valid")
@@ -54,6 +56,18 @@ def eval_params(state: TrainState) -> Dict[str, torch.Tensor]:
     if state.ema is not None:
         return state.ema
     return {n: p.detach() for n, p in state.model.named_parameters()}
+
+
+def eval_model(state: TrainState) -> PoseProposalNet:
+    """A copy of the state's model in eval mode holding the eval parameters
+    (the EMA when tracked) and the BatchNorm running statistics, for
+    inference."""
+    model = copy.deepcopy(state.model).eval()
+    weights = eval_params(state)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(weights[name])
+    return model
 
 
 def make_lr_schedule(cfg: Config) -> Callable[[int], float]:
@@ -205,20 +219,29 @@ def eval_loss_step(cfg: Config, state: TrainState,
     return terms
 
 
-def make_forward(state: TrainState) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_forward(state: TrainState, flip_tta: bool = False
+                 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Inference forward: images → f32 feature map, with eval-mode
     BatchNorm (running statistics) and the eval (EMA when tracked)
-    parameters."""
+    parameters. ``flip_tta`` also runs the mirrored images and merges the
+    two maps in logit space, in f32 (``ops/tta.py``): one extra forward,
+    no extra post-process pass."""
+    m = state.model.cfg
 
     def forward(images: torch.Tensor) -> torch.Tensor:
         model = state.model
         was_training = model.training
         model.eval()
+        weights = {**dict(model.named_buffers()), **eval_params(state)}
+
+        def call(x):
+            return torch.func.functional_call(model, weights, (x,))
+
         try:
             with torch.no_grad():
-                return torch.func.functional_call(
-                    model, {**dict(model.named_buffers()),
-                            **eval_params(state)}, (images,))
+                if flip_tta:
+                    return flip_tta_forward(m, call, images)
+                return call(images)
         finally:
             model.train(was_training)
 

@@ -100,6 +100,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                                  cfg.model.num_classes, 2)
 
 
+def test_serving_slice_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from ppn_tpu_torch.apps import predict, serve, video
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.inference import Predictor
+    from ppn_tpu_torch.nn.model import PoseProposalNet
+
+    cfg = get_config("tiny_test")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(cfg, PoseProposalNet(cfg.model), flip_tta=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor.from_checkpoint(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict.main(["--config", "tiny_test", "--synthetic", "0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--config", "tiny_test", "--selftest", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        video.main(["--config", "tiny_test", "--frames", "2"])
+
+
 def test_chip_smoke_fails_without_cuda(no_cuda, capsys):
     import importlib.util
 

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from ppn_tpu_torch.configs import get_config
-from ppn_tpu_torch.testing import KINDS, feature_map_case, max_ulp
+from ppn_tpu_torch.testing import (KINDS, feature_map_case, max_ulp,
+                                   nan_window_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,12 +63,30 @@ def test_kernel_matches_plain(device, name, kind):
     ("mpii_r18_384", 4, "chain"),            # every proposal a candidate,
     ("coco_r18_384_crowded", 4, "chain"),    # keeps alternating
     ("mpii_r18_384", 133, "normal"),         # more CTAs than SMs
+    ("mpii_r18_384", 128, "nan"),            # NaN logits at full batch
+    ("coco_r18_384_crowded", 128, "nan"),
 ])
 def test_kernel_matches_plain_on_edge_cases(device, name, batch, kind):
     m = get_config(name).model
     for seed in range(2):
         fm = feature_map_case(m, batch, seed, kind)
         _assert_kernel_matches_plain(m, torch.from_numpy(fm).to(device), seed)
+
+
+@pytest.mark.parametrize("name", ["tiny_test", "mpii_r18_384",
+                                  "coco_r18_384_crowded"])
+def test_kernel_matches_plain_on_nan_window_case(device, name):
+    """One NaN limb logit beside the winner its window would otherwise
+    have: no winner in that row, in the kernel as in the plain version."""
+    m = get_config(name).model
+    fm = torch.from_numpy(nan_window_case(m)).to(device)
+    _assert_kernel_matches_plain(m, fm, name)
+    from ppn_tpu_torch.ops import cuda_post
+
+    got = cuda_post.postprocess_batch_cuda(m, fm)
+    d = m.edges[next(i for i, (s, _) in enumerate(m.edges) if s == 0)][1]
+    assert got.kp_cell[0, 0, d].tolist() == [0, 0]
+    assert float(got.kp_score[0, 0, d]) == 0.0
 
 
 def test_stage_clocks(device):

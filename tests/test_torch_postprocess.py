@@ -25,7 +25,8 @@ from ppn_tpu_torch.ops import nms as nmsops
 from ppn_tpu_torch.ops import parse as parseops
 from ppn_tpu_torch.ops.postprocess import (postprocess_batch_fast,
                                            postprocess_batch_plain)
-from ppn_tpu_torch.testing import EDGE_KINDS, KINDS, feature_map_case, max_ulp
+from ppn_tpu_torch.testing import (EDGE_KINDS, KINDS, feature_map_case,
+                                   max_ulp, nan_window_case)
 
 from test_postprocess import oracle_nms, oracle_parse
 
@@ -167,7 +168,7 @@ def test_edge_case_maps(name):
 
 
 def test_needed_bytes_hand_count():
-    """``cuda_post.needed_bytes`` on a tiny_test map counted by hand. The
+    """``cuda_post.needed_bytes`` on tiny_test maps counted by hand. The
     grid is 2×2 and the window 3×3, so from each of the 4 cells every cell
     is exactly one window offset away."""
     m = get_config("tiny_test").model
@@ -180,11 +181,40 @@ def test_needed_bytes_hand_count():
     # per image: 4 cells × 6·17 proposal channels × 4 B = 1632 B, and
     # People: 4 slots × 17 × (8 + 16 + 4 + 1) B + 4 × (1 + 4) B = 1992 B;
     # limb reads of image 0: limb 3→2 from 4 cells × 1 kept destination,
-    # limb 4→5 from 4 cells × 2 kept destinations, 4 B each
+    # limb 4→5 from 4 cells × 2 kept destinations, 4 B each; no instance is
+    # kept, so the walk consults no row
     assert [d for _, d in m.edges].count(2) == 1
     assert [d for _, d in m.edges].count(5) == 1
     want = 2 * (1632 + 1992) + 4 * (4 * 1 + 4 * 2)
     assert cuda_post.needed_bytes(m, torch.from_numpy(fm)) == want
+    # the NaN window case: limb 0→3 keeps (0, 1) and (1, 1), 2 logits from
+    # each of the 4 cells; the walk consults the row from (0, 0), so its
+    # other 2 in-frame logits count too (to find the NaN); below it the walk
+    # stops. Without the NaN the row wins and the walk goes on from (1, 1),
+    # but no limb from class 3 has a kept destination: the same count.
+    fm = nan_window_case(m)
+    want = 1632 + 1992 + 4 * (4 * 2 + 2)
+    assert cuda_post.needed_bytes(m, torch.from_numpy(fm)) == want
+    fm[np.isnan(fm)] = -3.0
+    assert cuda_post.needed_bytes(m, torch.from_numpy(fm)) == want
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_plain_matches_jax_on_nan_window_case(name):
+    """One NaN limb logit beside the winner its window would otherwise have
+    (ROADMAP queue 3): the row has no winner, in the port as in JAX."""
+    m, jm = get_config(name).model, jax_get_config(name).model
+    fm = nan_window_case(m)
+    want = jax.device_get(jpost.postprocess_batch(jm, fm))
+    got = postprocess_batch_plain(m, torch.from_numpy(fm))
+    _assert_people_match(got, want, (name, "nan window"))
+    d = m.edges[next(i for i, (s, _) in enumerate(m.edges) if s == 0)][1]
+    assert got.kp_cell[0, 0, d].tolist() == [0, 0]
+    assert float(got.kp_score[0, 0, d]) == 0.0
+    fm[np.isnan(fm)] = -3.0                   # without the NaN, (1, 1) wins
+    clean = postprocess_batch_plain(m, torch.from_numpy(fm))
+    assert clean.kp_cell[0, 0, d].tolist() == [1, 1]
+    assert float(clean.kp_score[0, 0, d]) > 0.9
 
 
 def test_stage_us_reads_the_stamps():

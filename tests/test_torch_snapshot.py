@@ -51,6 +51,25 @@ def test_snapshot_reproduces_pinned_pckh(which):
     assert summary["pckh/num_joints"] == joints
 
 
+def test_snapshot_flip_tta_reproduces_jax_pckh():
+    """Flip-TTA on the MPII snapshot and the same protocol: the JAX
+    package's TTA forward (``train/steps.make_forward(flip_tta=True)``
+    through ``eval/runner.evaluate_pckh``) gives 0.98942 over 378 joints on
+    the CPU, one joint fewer than without TTA; the port must reproduce it,
+    not improve on it."""
+    name, snap, persons, (det, nms), _, joints = SNAPSHOTS["mpii"]
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, detection_thresh=det, nms_thresh=nms))
+    pred = Predictor.from_npz(cfg, os.path.join(ARTIFACTS, snap),
+                              device="cpu", flip_tta=True)
+    summary = evaluate_pckh(cfg, pred.predict,
+                            heldout_dataset(cfg, num_persons=persons),
+                            max_images=16, batch_size=8)
+    assert abs(summary["pckh/mean"] - 0.98942) < 3e-3, summary
+    assert summary["pckh/num_joints"] == joints
+
+
 def test_snapshot_rejects_wrong_config():
     with pytest.raises(ValueError, match="leaves|shape"):
         load_inference_npz(get_config("mpii_r18_384"),

@@ -1,0 +1,134 @@
+"""The port's streaming video path (ppn_tpu_torch/apps/video.py) against
+``ppn_tpu/apps/video.py`` on the CPU: the frame pipeline (upload, /255,
+resize, model, post-process) on the same frame and weights gives the same
+decisions; the synthetic source gives the same frames; the CLI runs.
+
+Weights: tests/test_torch_model.py's seeded weights in f32 (seed 5, whose
+maps keep proposals at detection threshold 0.02), loaded into both
+packages. The resizes differ by ≤ 2.4e-7 and the f32 forwards by ~1e-6 of
+the largest logit, which moves no decision on these frames.
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import nnx
+
+from ppn_tpu.apps import video as jvideo
+from ppn_tpu.configs import get_config as jax_get_config
+from ppn_tpu.nn.model import PoseProposalNet as JaxPPN
+from ppn_tpu.train import steps as jst
+from ppn_tpu_torch.apps import video
+from ppn_tpu_torch.configs import get_config
+from ppn_tpu_torch.inference import fetch_async, wait_host
+from ppn_tpu_torch.train import steps as st
+from ppn_tpu_torch.utils.params_io import state_dict_from_jax_leaves
+
+from test_torch_model import _jax_template, _numpy_leaves
+
+DECISIONS = ("kp_cell", "kp_valid", "valid", "num_kp")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tensors here are small: PyTorch's thread pool only adds overhead, and
+    under the suite's parallel workers it oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg, cfg = jax_get_config("tiny_test"), get_config("tiny_test")
+    jcfg, cfg = (dataclasses.replace(
+        c, train=dataclasses.replace(c.train, dtype="float32",
+                                     ema_decay=0.0),
+        model=dataclasses.replace(c.model, detection_thresh=0.02))
+        for c in (jcfg, cfg))
+    _, flat, treedef = _jax_template(jcfg.model, jnp.float32)
+    leaves = _numpy_leaves(flat, seed=5)
+    tree = jax.tree.unflatten(treedef, leaves)
+    graphdef = nnx.split(nnx.eval_shape(
+        lambda: JaxPPN(jcfg.model, dtype=jnp.float32, rngs=nnx.Rngs(0))),
+        nnx.Param, ...)[0]
+    jstate = jst.TrainState(params=tree["params"], rest=tree["rest"],
+                            opt_state=None, step=0,
+                            rng=jax.random.PRNGKey(0))
+    state = st.create_train_state(cfg, device="cpu")
+    state.model.load_state_dict(
+        state_dict_from_jax_leaves(cfg, leaves, state.model))
+    return jcfg, cfg, graphdef, jstate, state
+
+
+@pytest.mark.parametrize("shape, pre_resized", [((120, 160), False),
+                                                ((64, 64), True)])
+def test_pipeline_matches_jax(models, shape, pre_resized):
+    jcfg, cfg, graphdef, jstate, state = models
+    frame = next(jvideo.synthetic_frames(1, size=shape, fps=0))
+    want = jax.device_get(jvideo.make_video_pipeline(
+        jcfg, graphdef, pre_resized=pre_resized)(jstate, frame))
+    pipe = video.make_video_pipeline(cfg, state, pre_resized=pre_resized)
+    got = wait_host(*fetch_async(pipe(frame)))
+    assert got.valid.shape == (cfg.model.max_instances,)
+    assert got.kp_score.any()
+    for f in DECISIONS:
+        np.testing.assert_array_equal(getattr(got, f),
+                                      np.asarray(getattr(want, f)), f)
+    np.testing.assert_allclose(got.kp_score, want.kp_score, rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_synthetic_frames_match_jax():
+    """The same pre-rendered, cycled pool as the JAX package's source."""
+    got = list(video.synthetic_frames(5, size=(64, 64), pool=2, fps=0))
+    want = list(jvideo.synthetic_frames(5, size=(64, 64), pool=2, fps=0))
+    assert len(got) == 5 and got[0].dtype == np.uint8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[0], got[2])      # the pool cycles
+    assert not np.array_equal(got[0], got[1])          # and is diverse
+
+
+def test_host_resize():
+    frame = np.random.default_rng(0).integers(0, 255, (72, 96, 3), np.uint8)
+    small = video.host_resize(frame, (64, 64))
+    assert small.shape == (64, 64, 3) and small.dtype == np.uint8
+    np.testing.assert_array_equal(small, jvideo.host_resize(frame, (64, 64)))
+    assert video.host_resize(small, (64, 64)) is small
+
+
+def test_capture_frames_bad_source():
+    pytest.importorskip("cv2")
+    with pytest.raises(RuntimeError, match="cannot open"):
+        next(video.capture_frames("/nonexistent/clip.mp4"))
+
+
+def test_main_on_synthetic_frames(tmp_path, capsys):
+    """The CLI on the CPU: the pipelined loop, then --no-overlap with the
+    host pre-resize and annotated frames."""
+    base = ["--config", "tiny_test", "--source", "synthetic", "--frames",
+            "4", "--device", "cpu", "--set", "model.detection_thresh=0.02"]
+    summary = video.main(base + ["--json"])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == summary
+    assert 1 <= summary["frames"] <= 4 and summary["p50_ms"] > 0
+    out = tmp_path / "frames"
+    summary = video.main(base + ["--no-overlap", "--pre-resize",
+                                 "--out", str(out)])
+    assert summary["frames"] >= 1
+    assert (out / "frame_0000.png").exists()
+
+
+def test_main_refuses_what_is_not_ported(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 13"):
+        video.main(["--config", "tiny_test", "--source", str(tmp_path),
+                    "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        video.main(["--config", "tiny_test", "--ini", "x.ini",
+                    "--device", "cpu"])
