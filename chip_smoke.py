@@ -43,46 +43,57 @@ Phases, each raising on failure:
                protocol: 0.9894 ± 3e-3 over 378 joints (the JAX package's
                TTA on its CPU), one post launch per predict call; then the
                median of 20 B=128 TTA predicts;
-  8. B=1 latency — ``predict_single`` on uint8 384² images, p50 and p90 of
+  8. evaluation — COCO OKS AP through ``Predictor`` and
+               ``eval/runner.evaluate_oks`` on 16 held-out synthetic images
+               at B=8, against the JAX package's values on its CPU within
+               5e-3: the COCO snapshot (det 0.02, nms 0.6, 2 persons)
+               0.945134 over 32 GT, the same with flip-TTA 0.972408, the
+               crowd snapshot (5 persons) 0.862841 over 80; two post
+               launches each; wall time per evaluated image, cold and warm,
+               and its share in predict; then ``apps/evaluate.main
+               --metric oks`` on the COCO snapshot, with the thresholds as
+               flags and from a config.ini: its JSON equal to the library's
+               summary rounded to 4 places;
+  9. B=1 latency — ``predict_single`` on uint8 384² images, p50 and p90 of
                200 calls after warm-up, without and with TTA, and the split
                of one call: upload, forward, post (kernel device time and
                the wrapper's host time), download;
-  9. server   — ``apps/serve.main`` self-test on the snapshot (64 requests,
+ 10. server   — ``apps/serve.main`` self-test on the snapshot (64 requests,
                8 client threads, max batch 32, 5 ms window): every request
                bitwise equal to a direct predict at a bucket the server used,
                and one post launch per predict call (warm-up, batches, the
                check's direct predicts);
- 10. video    — ``apps/video.main`` on 64 synthetic 720p frames at 30 fps
+ 11. video    — ``apps/video.main`` on 64 synthetic 720p frames at 30 fps
                with the on-device resize, pipelined and with
                ``--no-overlap``: one post launch per frame (the warm-up
                frame besides); the first frame's People through the kernel
                equal to the plain pipeline's (resize, model,
                ``postprocess_batch_plain``) in every decision field;
- 11. train step, card against CPU — one ``train_step`` of tiny_test in f32
+ 12. train step, card against CPU — one ``train_step`` of tiny_test in f32
                (TF32 off), augmentation off, from the same parameters on
                both: loss terms within rel 1e-4;
- 12. training path — mpii_r18_384 at B=32, bf16, augmentation on, 256
+ 13. training path — mpii_r18_384 at B=32, bf16, augmentation on, 256
                synthetic images in the port's ``DeviceCache``, fine-tuning
                the committed MPII snapshot through ``Trainer.run`` for 30
                steps into a fresh checkpoint directory: finite losses, one
                warp launch per step, a new ``Trainer`` resumes the step and
                the parameters bitwise, ``Trainer.evaluate`` gives PCKh on
                the 16-image protocol through the post kernel;
- 13. training times — the median step time over 20 steps and the
+ 14. training times — the median step time over 20 steps and the
                CUDA-event times of augment, encode, forward+backward and
                optimizer+EMA over 10 steps;
- 14. overfit  — mpii_r18_384 from a fresh init on 8 fixed images,
+ 15. overfit  — mpii_r18_384 from a fresh init on 8 fixed images,
                augmentation off, constant lr 0.007, 60 steps: the mean
                loss_total of the last 10 steps under half the first's;
- 15. warp kernel times at B=32 bf16 (a CUDA graph of 50 launches, and back
+ 16. warp kernel times at B=32 bf16 (a CUDA graph of 50 launches, and back
                to back) beside its plain version and its bound;
- 16. report  — the serving slice's numbers, the kernels line, then the
-               device line last.
+ 17. report  — the serving and evaluation slices' numbers, the kernels
+               line, then the device line last.
 
 Launch counts are set to 0 just before each path (phase 5 for inference,
-7 for TTA, 8 for B=1, 9 for the server, 10 for video, 12 for training) and
-read just after it; comparison and timing launches fall outside those
-windows.
+7 for TTA, 8 for each evaluation and CLI run, 9 for B=1, 10 for the server,
+11 for video, 13 for training) and read just after it; comparison and
+timing launches fall outside those windows.
 """
 
 from __future__ import annotations
@@ -119,6 +130,22 @@ TRAIN_IMAGES = 256
 OVERFIT_STEPS = 60
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "artifacts", "mpii_hero_r5_ema_f16.npz")
+COCO_SNAPSHOT = os.path.join(ROOT, "artifacts", "coco_hero_r3_ema_f16.npz")
+CROWD_SNAPSHOT = os.path.join(ROOT, "artifacts", "crowd_hero_r5_ema_f16.npz")
+# COCO OKS AP of the JAX package on its CPU (train/steps.make_forward through
+# eval/runner.evaluate_oks), 16 held-out synthetic images at B=8:
+# label -> (config, snapshot, persons, det/nms, flip-TTA, AP, GT persons)
+OKS_PINS = {
+    "coco": ("coco_r18_384", COCO_SNAPSHOT, 2, (0.02, 0.6), False,
+             0.945134, 32),
+    "coco_tta": ("coco_r18_384", COCO_SNAPSHOT, 2, (0.02, 0.6), True,
+                 0.972408, 32),
+    "crowd": ("coco_r18_384_crowded", CROWD_SNAPSHOT, 5, None, False,
+              0.862841, 80),
+}
+OKS_TOLERANCE = 5e-3   # about one match flipped at one of the ten OKS
+                       # thresholds among 32 GT: bf16 cuDNN logits against
+                       # the CPU's
 # (angle, scale, tx, flip): the warp cases of tests/test_pallas_warp.py
 WARP_CASES = [(0.0, 1.0, 0.0, False), (0.3, 1.1, 12.0, False),
               (-0.5, 0.8, -7.0, False), (0.7, 1.25, 3.0, True),
@@ -364,7 +391,7 @@ def main() -> int:
     from ppn_tpu_torch.data.device_cache import DeviceCache
     from ppn_tpu_torch.data.synthetic import (SyntheticPoseDataset,
                                               heldout_dataset)
-    from ppn_tpu_torch.eval.runner import evaluate_pckh
+    from ppn_tpu_torch.eval.runner import evaluate_oks, evaluate_pckh
     from ppn_tpu_torch.inference import Predictor, fetch_async, wait_host
     from ppn_tpu_torch.ops import cuda_build, cuda_post, cuda_warp
     from ppn_tpu_torch.ops.image import (affine_warp_separable_plain,
@@ -606,7 +633,80 @@ def main() -> int:
         f" = {1e3 * B / tta_med:.1f} img/s (without TTA {1e3 * B / med:.1f}"
         f") | {card}")
 
-    # ---- 8. B=1 latency -----------------------------------------------------
+    # ---- 8. evaluation: COCO OKS AP through the kernel, the evaluate CLI ----
+    from ppn_tpu_torch.apps import evaluate
+
+    evaluation = {}
+    for label, (name, snap, persons, thresholds, tta, pin,
+                n_gt) in OKS_PINS.items():
+        ecfg = get_config(name)
+        if thresholds is not None:
+            ecfg = dataclasses.replace(ecfg, model=dataclasses.replace(
+                ecfg.model, detection_thresh=thresholds[0],
+                nms_thresh=thresholds[1]))
+        epred = Predictor.from_npz(ecfg, snap, flip_tta=tta)
+        eval_set = heldout_dataset(ecfg, num_persons=persons)
+        in_predict = []
+
+        def timed_predict(images):
+            t0 = time.perf_counter()
+            out = epred.predict(images)
+            in_predict.append(time.perf_counter() - t0)
+            return out
+
+        cuda_post.LAUNCHES = 0
+        t0 = time.perf_counter()
+        summary = evaluate_oks(ecfg, timed_predict, eval_set, max_images=16,
+                               batch_size=8)
+        first_s, e_launches = time.perf_counter() - t0, cuda_post.LAUNCHES
+        in_predict.clear()          # again, warm: cuDNN set up, images cached
+        t0 = time.perf_counter()
+        again = evaluate_oks(ecfg, timed_predict, eval_set, max_images=16,
+                             batch_size=8)
+        warm_s = time.perf_counter() - t0
+        evaluation[label] = dict(
+            summary, launches=e_launches, pinned_ap=pin,
+            repeat_equal=again == summary,
+            first_ms_per_image=1e3 * first_s / 16,
+            ms_per_image=1e3 * warm_s / 16,
+            predict_ms_per_image=1e3 * sum(in_predict) / 16)
+        log(f"[eval] {label}: OKS AP {summary['oks/AP']:.6f} (pinned {pin} "
+            f"± {OKS_TOLERANCE}), AP50 {summary['oks/AP50']:.6f}, AP75 "
+            f"{summary['oks/AP75']:.6f}, {summary['oks/num_gt']:.0f} GT; "
+            f"ppn_post_kernel launches {e_launches} for 2 batches of 8; wall "
+            f"{1e3 * warm_s / 16:.3f} ms per image warm ("
+            f"{1e3 * sum(in_predict) / 16:.3f} in predict, the rest "
+            f"batching and OKS matching on the host), {1e3 * first_s / 16:.3f}"
+            f" ms cold | {card}")
+        if (abs(summary["oks/AP"] - pin) >= OKS_TOLERANCE
+                or summary["oks/num_gt"] != n_gt or e_launches != 2):
+            raise AssertionError(f"OKS evaluation {label}: {summary}, "
+                                 f"{e_launches} launches")
+        del epred
+    # the CLI, with the thresholds as flags and from a config.ini
+    want = {k: round(v, 4) for k, v in evaluation["coco"].items()
+            if k.startswith("oks/")}
+    argv = ["--config", "coco_r18_384", "--ckpt-dir", COCO_SNAPSHOT,
+            "--metric", "oks", "--num-persons", "2", "--max-images", "16",
+            "--batch-size", "8"]
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        ini = os.path.join(d, "config.ini")
+        with open(ini, "w") as fh:
+            fh.write("[model]\ndetection_thresh = 0.02\nthresh = 0.6\n")
+        for label, extra in (("flags", ["--detection-thresh", "0.02",
+                                        "--nms-thresh", "0.6"]),
+                             ("ini", ["--ini", ini])):
+            cuda_post.LAUNCHES = 0
+            returned, printed = quiet_call(evaluate.main, argv + extra)
+            got = json.loads(printed)
+            evaluation[f"cli_{label}"] = dict(got, launches=cuda_post.LAUNCHES)
+            log(f"[eval] evaluate CLI, thresholds from {label}: {got}; "
+                f"ppn_post_kernel launches {cuda_post.LAUNCHES}")
+            if got != want or returned != want or cuda_post.LAUNCHES != 2:
+                raise AssertionError(f"evaluate CLI ({label}) printed {got},"
+                                     f" the library {want}")
+
+    # ---- 9. B=1 latency -----------------------------------------------------
     one = images[0]
     latency = {}
     for label, p_ in (("plain", pred), ("tta", tpred)):
@@ -639,7 +739,7 @@ def main() -> int:
         "kernel's as a CUDA-graph replay; the wrapper's host µs): "
         + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" | {card}")
 
-    # ---- 9. server: micro-batched requests, verified bitwise ----------------
+    # ---- 10. server: micro-batched requests, verified bitwise ---------------
     from ppn_tpu_torch.apps import serve, video
 
     requests, max_batch = 64, 32
@@ -666,7 +766,7 @@ def main() -> int:
         raise AssertionError(f"server self-test failed: rc {rc}, "
                              f"{serve_launches} launches, {server}")
 
-    # ---- 10. video: 720p frames, on-device resize ---------------------------
+    # ---- 11. video: 720p frames, on-device resize ---------------------------
     vcfg = get_config("mpii_r18_384")    # the video app's thresholds
     frame0 = next(video.synthetic_frames(1, fps=0))
     got = video.make_video_pipeline(vcfg, pred.model)(frame0)
@@ -697,7 +797,7 @@ def main() -> int:
                                  " and the warm-up")
     del pred, tpred, fm1
 
-    # ---- 11. one train step on the card against the CPU ----------------------
+    # ---- 12. one train step on the card against the CPU ---------------------
     tcfg = dataclasses.replace(tiny, train=dataclasses.replace(
         tiny.train, dtype="float32", lr_schedule="constant",
         warmup_steps=0, learning_rate=0.05, ema_decay=0.9))
@@ -716,7 +816,7 @@ def main() -> int:
     if max(rel.values()) > 1e-4:
         raise AssertionError(f"card and CPU train steps disagree: {rel}")
 
-    # ---- 12. training path: fine-tune at full width, resume, evaluate --------
+    # ---- 13. training path: fine-tune at full width, resume, evaluate -------
     ckpt_dir = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(
         ROOT, "build"))
     try:
@@ -765,7 +865,7 @@ def main() -> int:
         if not math.isfinite(summary["pckh/mean"]):
             raise AssertionError("non-finite PCKh")
 
-        # ---- 13. training times ----------------------------------------------
+        # ---- 14. training times ---------------------------------------------
         state = trainer.state
         step_ms = []
         for _ in range(20):
@@ -793,7 +893,7 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    # ---- 14. overfit 8 fixed images from a fresh init ------------------------
+    # ---- 15. overfit 8 fixed images from a fresh init -----------------------
     ocfg = dataclasses.replace(mpii, train=dataclasses.replace(
         mpii.train, lr_schedule="constant", warmup_steps=0,
         learning_rate=mpii.train.learning_rate))
@@ -809,7 +909,7 @@ def main() -> int:
         raise AssertionError("the overfit check did not halve the loss")
     del ostate
 
-    # ---- 15. warp kernel times at the training path's shape -----------------
+    # ---- 16. warp kernel times at the training path's shape -----------------
     xw = cache.data["image"][:32].to(torch.float32).div(255.0).to(
         torch.bfloat16)
     mw = warp_matrices(mpii, 32, dev, seed=32)
@@ -821,7 +921,7 @@ def main() -> int:
         f"graph of 50 launches; back to back {w_eager_ms:.4f} ms), plain "
         f"{wp_ms:.3f} ms, bound {w_bound:.6f} ms (bytes) | {card}")
 
-    # ---- 16. report ----------------------------------------------------------
+    # ---- 17. report ---------------------------------------------------------
     k_ms, p_ms, bound, whole, eager_ms, call_us = times[B]
     k1_ms, p1_ms, bound1, whole1, eager1_ms, call1_us = times[1]
     log(json.dumps({"serving_slice": {
@@ -830,6 +930,7 @@ def main() -> int:
         "tta_predict_ms_b128": tta_med, "tta_img_per_s_b128": 1e3 * B / tta_med,
         "b1_latency": latency, "b1_split_ms": split, "server": server,
         "video": videos}}))
+    log(json.dumps({"evaluation_slice": evaluation}))
     log(card)   # the nvidia-smi name,power.limit line, as it prints it
     log(json.dumps({"kernels": [{
         "name": "ppn_post_kernel", "route": "cuda",
@@ -854,6 +955,8 @@ def main() -> int:
         "predict_ms_b128": med,
         "img_per_s_b128": 1e3 * B / med, "forward_ms_b128": fwd_ms,
         "launches_training_path": post_train_launches,
+        "launches_evaluation_path": sum(
+            v["launches"] for v in evaluation.values()),
     }, {
         "name": "ppn_warp_kernel", "route": "cuda",
         "source": "ppn_tpu_torch/csrc/warp.cu",

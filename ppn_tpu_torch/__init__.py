@@ -2,11 +2,12 @@
 
 A port of ``ppn_tpu`` (JAX/Pallas on a TPU) that imports nothing of it. Its
 paths: batched inference (uint8 images → ResNet trunk + PPN head, cuDNN
-convs → one fused post-process CUDA kernel → fixed-shape ``People``) and
+convs → one fused post-process CUDA kernel → fixed-shape ``People``),
 training (on-device augmentation through an affine-warp CUDA kernel →
-target encoding → bf16 forward/backward → SGD + EMA, checkpoints, PCKh
-eval through the post-process kernel). Entry points run on ``cuda`` unless
-the caller asks for ``device="cpu"``.
+target encoding → bf16 forward/backward → SGD + EMA, checkpoints) and
+evaluation (PCKh and COCO OKS AP over batches through the post-process
+kernel, the evaluate CLI). Entry points run on ``cuda`` unless the caller
+asks for ``device="cpu"``.
 """
 
 from __future__ import annotations

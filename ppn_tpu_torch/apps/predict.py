@@ -11,8 +11,9 @@ post-process, prints the poses as JSON and optionally writes a picture.
     python -m ppn_tpu_torch.apps.predict --config tiny_test --synthetic 0 \
         --device cpu
 
-``--image`` and ``--out`` need PIL, imported only for them. ``--ini`` (the
-reference config.ini importer) is not ported (ROADMAP.md queue 1 item 9).
+``--ini`` applies a reference-style config.ini over ``--config``, and
+``--set`` applies over that. ``--image`` and ``--out`` need PIL, imported
+only for them.
 """
 
 from __future__ import annotations
@@ -67,8 +68,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="PPN single-image inference")
     p.add_argument("--config", default="mpii_r18_384")
     p.add_argument("--ini", default=None, metavar="PATH",
-                   help="reference-style config.ini applied over --config "
-                        "(not ported: ROADMAP.md queue 1 item 9)")
+                   help="reference-style config.ini applied over --config")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--image", default=None)
     p.add_argument("--synthetic", type=int, default=None,
@@ -86,15 +86,11 @@ def main(argv=None):
     args = p.parse_args(argv)
     if (args.image is None) == (args.synthetic is None):
         p.error("exactly one of --image / --synthetic is required")
-    if args.ini:
-        raise NotImplementedError(
-            "--ini (the config.ini importer) is not ported "
-            "(ROADMAP.md queue 1 item 9)")
 
-    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.configs import resolve_config
     from ppn_tpu_torch.inference import Predictor
 
-    cfg = get_config(args.config)
+    cfg = resolve_config(args.config, args.ini)
     if args.overrides:
         from ppn_tpu_torch.overrides import apply_overrides
 

@@ -10,7 +10,7 @@ single images, ``PoseServer`` batches them onto the card.
 Prints one JSON line: requests, threads, wall time, images/s, request
 latency p50 and p90, the batch-size histogram and the number of requests
 whose poses differ from a direct predict; exits 1 on any mismatch.
-``--ini`` is not ported (ROADMAP.md queue 1 item 9).
+``--ini`` applies a reference-style config.ini over ``--config``.
 """
 
 from __future__ import annotations
@@ -25,8 +25,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config", default="mpii_r18_384")
     p.add_argument("--ini", default=None, metavar="PATH",
-                   help="reference-style config.ini applied over --config "
-                        "(not ported: ROADMAP.md queue 1 item 9)")
+                   help="reference-style config.ini applied over --config")
     p.add_argument("--ckpt-dir", default=None,
                    help="checkpoint or .npz snapshot to serve "
                         "(default: fresh init)")
@@ -41,20 +40,16 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device to serve on (default: cuda)")
     args = p.parse_args(argv)
-    if args.ini:
-        raise NotImplementedError(
-            "--ini (the config.ini importer) is not ported "
-            "(ROADMAP.md queue 1 item 9)")
 
     import numpy as np
 
-    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.configs import resolve_config
     from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
     from ppn_tpu_torch.inference import Predictor
     from ppn_tpu_torch.ops.parse import People
     from ppn_tpu_torch.serving import PoseServer
 
-    cfg = get_config(args.config)
+    cfg = resolve_config(args.config, args.ini)
     predictor = Predictor.from_checkpoint(cfg, args.ckpt_dir,
                                           flip_tta=args.flip_tta,
                                           device=args.device)

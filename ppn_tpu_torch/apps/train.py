@@ -6,10 +6,11 @@ Examples:
         --overfit 8 --device cpu
     python -m ppn_tpu_torch.apps.train --config mpii_r18_384 --steps 1000
 
-Not ported yet, and refused with the ROADMAP.md item that brings them:
-``--data mpii|coco`` (the real-data loaders), ``--ini`` (the reference
-config.ini importer), ``--pretrained`` (the torchvision weight importer)
-and ``--steps-per-call > 1`` (the K-step device loop).
+``--ini`` applies a reference-style config.ini over ``--config``; the
+other flags, and ``--set`` last, apply over that. Not ported yet, and
+refused with the ROADMAP.md item that brings them: ``--data mpii|coco``
+(the real-data loaders), ``--pretrained`` (the torchvision weight
+importer) and ``--steps-per-call > 1`` (the K-step device loop).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from ppn_tpu_torch.configs import get_config
+from ppn_tpu_torch.configs import resolve_config
 
 
 def _persons_arg(s: str):
@@ -32,8 +33,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train a Pose Proposal Network")
     p.add_argument("--config", default="mpii_r18_384")
     p.add_argument("--ini", default=None, metavar="PATH",
-                   help="reference-style config.ini applied over --config "
-                        "(not ported: ROADMAP.md queue 1 item 9)")
+                   help="reference-style config.ini applied over --config")
     p.add_argument("--data", default="synthetic",
                    choices=["synthetic", "mpii", "coco"])
     p.add_argument("--data-root", default=None)
@@ -105,15 +105,11 @@ def make_datasets(cfg, args):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.ini:
-        raise NotImplementedError(
-            "--ini (the config.ini importer) is not ported "
-            "(ROADMAP.md queue 1 item 9)")
     if args.pretrained:
         raise NotImplementedError(
             "--pretrained (the torchvision weight importer, "
             "utils/torch_import.py) is not ported (ROADMAP.md queue 1 item 9)")
-    cfg = get_config(args.config)
+    cfg = resolve_config(args.config, args.ini)
 
     updates = {}
     if args.steps is not None:

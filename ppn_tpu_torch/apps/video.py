@@ -138,8 +138,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="PPN streaming video pose")
     p.add_argument("--config", default="mpii_r18_384")
     p.add_argument("--ini", default=None, metavar="PATH",
-                   help="reference-style config.ini applied over --config "
-                        "(not ported: ROADMAP.md queue 1 item 9)")
+                   help="reference-style config.ini applied over --config")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--source", default="synthetic",
                    help="'synthetic', 'cam', or a video file path")
@@ -162,19 +161,15 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
-    if args.ini:
-        raise NotImplementedError(
-            "--ini (the config.ini importer) is not ported "
-            "(ROADMAP.md queue 1 item 9)")
     if args.source not in ("synthetic", "cam") and os.path.isdir(args.source):
         raise NotImplementedError(
             "--source <directory of JPEGs> (the native decode pool) is not "
             "ported (ROADMAP.md queue 1 item 13)")
 
-    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.configs import resolve_config
     from ppn_tpu_torch.inference import Predictor, fetch_async, wait_host
 
-    cfg = get_config(args.config)
+    cfg = resolve_config(args.config, args.ini)
     if args.overrides:
         from ppn_tpu_torch.overrides import apply_overrides
 

@@ -350,3 +350,14 @@ def get_config(name: str, **overrides) -> Config:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def resolve_config(name: str, ini: str | None = None) -> Config:
+    """Registry config, optionally overlaid with a reference-style
+    config.ini (``ini_compat``) — the shared ``--config [--ini]``
+    resolution of every CLI app."""
+    if ini:
+        from ppn_tpu_torch.ini_compat import load_ini
+
+        return load_ini(ini, base=name)
+    return get_config(name)

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's host modules — configs,
-config overrides, synthetic data, batching, PCKh, metric logging — must
-agree with the originals exactly."""
+config overrides, the config.ini importer, synthetic data, batching, PCKh,
+COCO OKS, metric logging — must agree with the originals exactly."""
 
 import dataclasses
 import json
@@ -8,18 +8,21 @@ import json
 import numpy as np
 import pytest
 
+from ppn_tpu import configs as jax_configs_pkg
 from ppn_tpu.configs import base as jax_configs
+from ppn_tpu.configs import ini_compat as jax_ini_compat
 from ppn_tpu.configs import overrides as jax_overrides
 from ppn_tpu.data import pipeline as jax_pipeline
 from ppn_tpu.data.synthetic import SyntheticPoseDataset as JaxSynthetic
+from ppn_tpu.eval import coco_eval as jax_coco_eval
 from ppn_tpu.eval import pckh as jax_pckh
 from ppn_tpu.eval import runner as jax_runner
 from ppn_tpu.ops.parse import People as JaxPeople
 from ppn_tpu.utils import logging as jax_logging
-from ppn_tpu_torch import configs, overrides
+from ppn_tpu_torch import configs, ini_compat, overrides
 from ppn_tpu_torch.data import pipeline
 from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset, heldout_dataset
-from ppn_tpu_torch.eval import pckh, runner
+from ppn_tpu_torch.eval import coco_eval, pckh, runner
 from ppn_tpu_torch.ops.parse import People
 from ppn_tpu_torch.utils import logging
 
@@ -197,3 +200,32 @@ def test_metric_logger_matches_jax(tmp_path, capsys):
     assert outs[0] == outs[1]
     assert outs[0][0] == [{"step": 7, "loss_total": 1.25, "grad_norm": 3.5,
                            "images_per_sec": 12.0}]
+
+
+def test_coco_eval_constants_match_jax():
+    for name in ("COCO_SIGMAS", "_THRESHOLDS"):
+        ours, theirs = getattr(coco_eval, name), getattr(jax_coco_eval, name)
+        assert ours.dtype == theirs.dtype
+        np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("value,want", [
+    ("384", (384, 384)), ("320,256", (320, 256)), ("224x224", (224, 224)),
+    ("12x", (12, 12))])
+def test_ini_size_parse_matches_jax(value, want):
+    assert ini_compat._parse_size(value) == jax_ini_compat._parse_size(
+        value) == want
+
+
+@pytest.mark.parametrize("value", ["0,1|1,2", "0,3;3,2|2,1"])
+def test_ini_edges_parse_matches_jax(value):
+    assert ini_compat._parse_edges(value) == jax_ini_compat._parse_edges(
+        value)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_resolve_config_without_ini_matches_jax(name):
+    cfg = configs.resolve_config(name)
+    assert cfg == configs.get_config(name)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jax_configs_pkg.resolve_config(name))

@@ -119,6 +119,20 @@ def test_serving_slice_defaults_to_cuda_and_raises_without_it(no_cuda):
         video.main(["--config", "tiny_test", "--frames", "2"])
 
 
+def test_evaluation_slice_defaults_to_cuda_and_raises_without_it(no_cuda,
+                                                                 capsys):
+    from ppn_tpu_torch.apps import evaluate
+
+    argv = ["--config", "tiny_test", "--max-images", "2", "--batch-size", "2"]
+    for metric in ("pckh", "oks"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            evaluate.main(argv + ["--metric", metric])
+    assert capsys.readouterr().out == ""
+    # asked for explicitly, the CPU works
+    summary = evaluate.main(argv + ["--metric", "oks", "--device", "cpu"])
+    assert "oks/AP" in summary
+
+
 def test_chip_smoke_fails_without_cuda(no_cuda, capsys):
     import importlib.util
 

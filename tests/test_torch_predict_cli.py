@@ -86,16 +86,40 @@ def test_predict_main(tmp_path, capsys):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(SystemExit):          # exactly one image source
         predict.main(["--config", "tiny_test", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        predict.main(argv + ["--ini", "x.ini"])
+    # the threshold from a config.ini in place of --set: the same People
+    ini = tmp_path / "x.ini"
+    ini.write_text("[model]\ndetection_thresh = 0.02\n")
+    from_ini = predict.main(argv[:-2] + ["--flip-tta", "--ini", str(ini)])
+    for a, b in zip(from_ini, want):
+        np.testing.assert_array_equal(a, b)
 
 
-def test_serve_selftest():
+def configs_loaded(monkeypatch) -> list:
+    """The configs ``Predictor.from_checkpoint`` is called with, from now."""
+    seen = []
+    load = Predictor.from_checkpoint.__func__
+
+    def record(cls, cfg, *args, **kwargs):
+        seen.append(cfg)
+        return load(cls, cfg, *args, **kwargs)
+
+    monkeypatch.setattr(Predictor, "from_checkpoint", classmethod(record))
+    return seen
+
+
+def test_serve_selftest(tmp_path, monkeypatch):
     assert serve.main(["--config", "tiny_test", "--selftest", "8",
                        "--threads", "3", "--max-batch", "4", "--window-ms",
                        "5", "--device", "cpu", "--json"]) == 0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve.main(["--config", "tiny_test", "--ini", "x.ini"])
+    # --ini: the server runs on the INI's thresholds
+    ini = tmp_path / "x.ini"
+    ini.write_text("[model]\ndetection_thresh = 0.02\nthresh = 0.5\n")
+    seen = configs_loaded(monkeypatch)
+    assert serve.main(["--config", "tiny_test", "--ini", str(ini),
+                       "--selftest", "2", "--threads", "2", "--max-batch",
+                       "2", "--device", "cpu", "--json"]) == 0
+    assert [(c.model.detection_thresh, c.model.nms_thresh)
+            for c in seen] == [(0.02, 0.5)]
 
 
 def test_from_checkpoint_sources(tmp_path):

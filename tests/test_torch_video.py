@@ -125,10 +125,17 @@ def test_main_on_synthetic_frames(tmp_path, capsys):
     assert (out / "frame_0000.png").exists()
 
 
-def test_main_refuses_what_is_not_ported(tmp_path):
+def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 13"):
         video.main(["--config", "tiny_test", "--source", str(tmp_path),
                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        video.main(["--config", "tiny_test", "--ini", "x.ini",
-                    "--device", "cpu"])
+    # --ini is ported: the stream runs on the INI's threshold
+    from test_torch_predict_cli import configs_loaded
+
+    ini = tmp_path / "x.ini"
+    ini.write_text("[model]\ndetection_thresh = 0.02\n")
+    seen = configs_loaded(monkeypatch)
+    summary = video.main(["--config", "tiny_test", "--ini", str(ini),
+                          "--frames", "2", "--device", "cpu"])
+    assert summary["frames"] >= 1
+    assert [c.model.detection_thresh for c in seen] == [0.02]
