@@ -87,13 +87,49 @@ Phases, each raising on failure:
                loss_total of the last 10 steps under half the first's;
  16. warp kernel times at B=32 bf16 (a CUDA graph of 50 launches, and back
                to back) beside its plain version and its bound;
- 17. report  — the serving and evaluation slices' numbers, the kernels
-               line, then the device line last.
+ 17. data parallel, one rank — ``Trainer`` on mpii_r18_384 at B=32, bf16,
+               augmentation on, constant lr, 10 steps from the snapshot over
+               a ``DeviceCache`` on its mesh (``mesh_shape`` (-1,)): as rank
+               0 of an NCCL world of one (``multihost.initialize`` from
+               MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE) against the same run
+               with no process group, bitwise (parameters, BatchNorm
+               statistics, EMA, every step's loss terms); one warp launch
+               per step; ``Trainer.evaluate`` under the mesh (two post
+               launches for the 16 protocol images);
+ 18. data parallel, two ranks — two spawned processes share cuda:0 in a
+               gloo world (NCCL refuses two ranks on one device) and run
+               mpii_r18_384 at full width from the snapshot, augmentation
+               on, against one process on the joined batch: f32 (TF32 off)
+               B=8, one step, loss terms within rel 1e-5 and every
+               parameter and running statistic within 1e-5·max|p|; then
+               bf16 B=32, 5 steps, loss_total within rel 2e-3; one warp
+               launch per step and rank; step times per rank beside the
+               one process's;
+ 19. export   — ``utils/export.export_pipeline`` of the snapshot at B=8 on
+               the card, to bytes and back through ``load_pipeline``, on the
+               protocol's first 8 images: ``valid`` equal to
+               ``Predictor.predict``'s (the kernel), floats within 4 ulps
+               where valid; the medians of 20 calls of each, the artifact's
+               size, the export and reload times, and the plain
+               post-process with bounded NMS against its early-exit loop;
+ 20. --pretrained — ``apps/train.main --pretrained`` with a torchvision-key
+               state dict made at run time from a seeded port ResNet-18:
+               the backbone equal to the file before step 1, two finite
+               steps;
+ 21. profiling and debug — ``profiling.trace`` of one B=8 predict names
+               ``ppn_post_kernel``; ``device_latency_ms`` of the post kernel's
+               wrapper at B=1 beside phase 6's CUDA-graph time; a forward on
+               a NaN image raises under ``debug.checking()``, naming a
+               module, and passes outside it;
+ 22. report  — the serving, evaluation and ninth slices' numbers, the
+               kernels line, then the device line last.
 
 Launch counts are set to 0 just before each path (phase 5 for inference,
 7 for TTA, 8 for each evaluation and CLI run, 9 for B=1, 10 for the server,
-11 for video, 13 for training) and read just after it; comparison and
-timing launches fall outside those windows.
+11 for video, 13 for training, 17 for each one-rank run and its
+evaluation, 18 in each rank and in the one process before its steps, 19
+before the exported call) and read just after it; comparison and timing
+launches fall outside those windows.
 """
 
 from __future__ import annotations
@@ -128,6 +164,8 @@ FLOATS = ("kp_box", "kp_score")
 TRAIN_STEPS = 30
 TRAIN_IMAGES = 256
 OVERFIT_STEPS = 60
+DP_STEPS = 10            # phase 17: one rank against no group, bitwise
+DP_BF16_STEPS = 5        # phase 18: two ranks against one process, bf16
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "artifacts", "mpii_hero_r5_ema_f16.npz")
 COCO_SNAPSHOT = os.path.join(ROOT, "artifacts", "coco_hero_r3_ema_f16.npz")
@@ -380,6 +418,302 @@ def train_stage_ms(cfg, state, batch, steps: int) -> dict:
             sums[i] += ev[i].elapsed_time(ev[i + 1])
     return dict(zip(("augment", "encode", "forward_backward",
                      "optimizer_ema"), (s / steps for s in sums)))
+
+
+def free_port() -> int:
+    """A TCP port on the loopback address that nothing listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def constant_lr(cfg, **train):
+    """``cfg`` with a constant learning rate from the first step (the
+    config's rate, no warmup: the default warmup starts at lr 0, which
+    would leave the first step's parameters where they were)."""
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, lr_schedule="constant", warmup_steps=0, **train))
+
+
+def dp_one_rank(cfg, train_ds, val, dev) -> dict:
+    """Phase 17: ``Trainer`` runs of DP_STEPS steps from the snapshot, with
+    no process group and then as rank 0 of a world of one over NCCL
+    (``multihost.initialize`` from the launcher's environment), each over
+    a ``DeviceCache`` on its mesh. Returns each run's state, EMA, per-step
+    loss terms and warp launches, and the NCCL run's PCKh and post
+    launches of ``Trainer.evaluate``."""
+    import torch.distributed as dist
+
+    from ppn_tpu_torch.data.device_cache import DeviceCache
+    from ppn_tpu_torch.ops import cuda_post, cuda_warp
+    from ppn_tpu_torch.parallel import make_mesh
+    from ppn_tpu_torch.parallel.multihost import initialize
+    from ppn_tpu_torch.train.trainer import Trainer
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "RANK": "0", "WORLD_SIZE": "1"}
+    runs = {}
+    for label in ("no_group", "nccl"):
+        d = tempfile.mkdtemp(prefix="dp1_", dir=os.path.join(ROOT, "build"))
+        try:
+            if label == "nccl":
+                os.environ.update(env)
+                initialize()
+                if (dist.get_backend() != "nccl"
+                        or dist.get_world_size() != 1):
+                    raise AssertionError("the launcher's world did not join "
+                                         "NCCL with one rank")
+            mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes, dev)
+            batches = DeviceCache(train_ds, device=dev, mesh=mesh
+                                  ).infinite_batches(cfg.train.batch_size,
+                                                     seed=0)
+            tcfg = constant_lr(cfg, checkpoint_dir=d, log_every=1,
+                               checkpoint_every=0, eval_every=0, resume=False)
+            cuda_post.LAUNCHES = cuda_warp.LAUNCHES = 0
+            trainer, _ = quiet_call(functools.partial(
+                Trainer, tcfg, batches, val_dataset=val, logdir=d,
+                init_npz=SNAPSHOT, device=dev, mesh=mesh))
+            quiet_call(trainer.run, DP_STEPS)
+            torch.cuda.synchronize()
+            run = {"warp": cuda_warp.LAUNCHES,
+                   "state": trainer.state.model.state_dict(),
+                   "ema": trainer.state.ema}
+            if label == "nccl":
+                run["pckh"] = trainer.evaluate(max_images=16, batch_size=8)
+                run["post"] = cuda_post.LAUNCHES
+            with open(os.path.join(d, "train_metrics.jsonl")) as fh:
+                run["terms"] = [{k: v for k, v in json.loads(line).items()
+                                 if k.startswith("loss_") or k == "grad_norm"}
+                                for line in fh]
+            trainer.close()
+            runs[label] = run
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+            if label == "nccl":
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                for k in env:
+                    os.environ.pop(k, None)
+    return runs
+
+
+def dp_steps(cases: dict, mesh) -> dict:
+    """For each case (label → (config, global batches on the host)): a train
+    state from the snapshot, replicated over ``mesh``, takes one
+    ``train_step`` with augmentation per batch on this rank's slice of it.
+    Returns, by label, the loss terms of each step, each step's host ms
+    (the device synchronized on both sides), the warp launches and the
+    state after (on the host)."""
+    from ppn_tpu_torch.ops import cuda_warp
+    from ppn_tpu_torch.parallel import replicate, shard_batch
+    from ppn_tpu_torch.train import steps as st
+    from ppn_tpu_torch.utils.params_io import load_npz_into_train_state
+
+    out = {}
+    for label, (cfg, batches) in cases.items():
+        state = st.create_train_state(cfg, device=mesh.device)
+        load_npz_into_train_state(cfg, SNAPSHOT, state)
+        replicate(mesh, state)
+        cuda_warp.LAUNCHES = 0
+        terms, ms = [], []
+        for batch in batches:
+            local = shard_batch(mesh, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t = st.train_step(cfg, state, local, augment=True, mesh=mesh)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            terms.append({k: float(v) for k, v in t.items()})
+        out[label] = {"terms": terms, "ms": ms,
+                      "launches": cuda_warp.LAUNCHES,
+                      "state": {k: v.cpu() for k, v in
+                                state.model.state_dict().items()}}
+    return out
+
+
+def dp_rank(rank: int, world: int, port: int, outdir: str,
+            cases: dict) -> None:
+    """Phase 18's ranks: each joins a gloo world on the loopback address
+    (NCCL refuses two ranks on one device), computes on cuda:0 with TF32
+    off, and writes ``dp_steps``' results to ``<outdir>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from ppn_tpu_torch.parallel import make_mesh
+    from ppn_tpu_torch.parallel.multihost import initialize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        out = dp_steps(cases, make_mesh(device="cuda:0"))
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def max_rel_state(got: dict, want: dict) -> tuple[float, str]:
+    """The worst |got − want| / max|want| over the tensors of a state, and
+    its tensor."""
+    return max((float((got[k].float() - want[k].float()).abs().max())
+                / max(float(want[k].float().abs().max()), 1e-30), k)
+               for k in want)
+
+
+def export_phase(cfg, val, dev) -> dict:
+    """Phase 19: the pipeline exported at B=8 on the card, to bytes and back,
+    on the first 8 images of the synthetic protocol, against
+    ``Predictor.predict`` (the post kernel) on the same images; times of
+    both, of the export and the reload, and of the plain post-process's
+    bounded NMS against its early-exit loop on the model's map."""
+    from ppn_tpu_torch.inference import Predictor
+    from ppn_tpu_torch.ops import cuda_post
+    from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
+    from ppn_tpu_torch.testing import max_ulp
+    from ppn_tpu_torch.utils.export import export_pipeline, load_pipeline
+
+    B = 8
+    pred = Predictor.from_npz(cfg, SNAPSHOT)
+    # the pipeline is exported for f32 images in [0, 1]; the protocol's are
+    # uint8, and both sides get the same floats
+    images = np.stack([val[i]["image"] for i in range(B)]).astype(
+        np.float32) / np.float32(255.0)
+    t0 = time.perf_counter()
+    blob = export_pipeline(cfg, pred.model, batch=B, device=dev)
+    t1 = time.perf_counter()
+    run = load_pipeline(blob)
+    t2 = time.perf_counter()
+    cuda_post.LAUNCHES = 0
+    kp_box, kp_score, valid = (t.cpu().numpy() for t in run(images))
+    exported_launches = cuda_post.LAUNCHES
+    want = pred.predict(images)
+    equal = np.array_equal(valid, want.valid)
+    ulp = max(max_ulp(kp_box[want.valid], want.kp_box[want.valid]),
+              max_ulp(kp_score[want.valid], want.kp_score[want.valid]))
+
+    def exported_call():
+        run(images)
+        torch.cuda.synchronize()
+
+    for _ in range(3):
+        exported_call()
+        pred.predict(images)
+    exp_ms = statistics.median(
+        1e3 * timed(exported_call) for _ in range(20))
+    pred_ms = statistics.median(
+        1e3 * timed(lambda: pred.predict(images)) for _ in range(20))
+    with torch.no_grad():
+        fm = pred.model(torch.from_numpy(images).to(dev))
+    m = cfg.model
+    bounded_ms = time_ms(lambda: postprocess_batch_plain(m, fm, bounded=True),
+                         5)
+    early_ms = time_ms(lambda: postprocess_batch_plain(m, fm), 5)
+    return {"valid_equal": equal, "max_ulp": ulp,
+            "persons": int(want.valid.sum()), "bytes": len(blob),
+            "export_s": t1 - t0, "load_s": t2 - t1,
+            "exported_ms_b8": exp_ms, "predict_ms_b8": pred_ms,
+            "post_launches_exported": exported_launches,
+            "plain_post_bounded_ms_b8": bounded_ms,
+            "plain_post_early_exit_ms_b8": early_ms}
+
+
+def timed(fn) -> float:
+    """Host seconds of one call of ``fn``."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def pretrained_phase() -> dict:
+    """Phase 20: ``apps/train.main --pretrained`` on the card with a
+    torchvision-key state dict made at run time from a seeded port
+    ResNet-18 (with the ``fc`` and ``num_batches_tracked`` entries
+    torchvision files carry, which the loader drops). ``--steps 0`` writes
+    the state before the first step, whose backbone must equal the file;
+    ``--steps 2`` then resumes from it and must log finite losses."""
+    from ppn_tpu_torch.apps import train as train_app
+    from ppn_tpu_torch.nn.resnet import resnet18
+    from ppn_tpu_torch.utils.torch_import import torchvision_state_dict
+
+    torch.manual_seed(7)
+    sd = torchvision_state_dict(resnet18())
+    sd["fc.weight"], sd["fc.bias"] = torch.randn(1000, 512), torch.zeros(1000)
+    for k in [k for k in sd if k.endswith("running_var")]:
+        sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+    d = tempfile.mkdtemp(prefix="pretrained_", dir=os.path.join(ROOT, "build"))
+    try:
+        path = os.path.join(d, "resnet18.pth")
+        torch.save(sd, path)
+        argv = ["--config", "mpii_r18_384", "--overfit", "8", "--batch-size",
+                "8", "--ckpt-dir", os.path.join(d, "ckpt"), "--log-dir", d,
+                "--pretrained", path, "--device", "cuda",
+                "--set", "train.log_every=1"]
+        quiet_call(train_app.main, argv + ["--steps", "0"])
+        model = torch.load(os.path.join(d, "ckpt", "ckpt_00000000.pt"),
+                           weights_only=True)["model"]
+        bb = resnet18()
+        bb.load_state_dict({k[len("backbone."):]: v for k, v in model.items()
+                            if k.startswith("backbone.")})
+        got = torchvision_state_dict(bb)
+        exact = (set(got) == {k for k in sd if not k.startswith("fc.")
+                              and "num_batches" not in k}
+                 and all(torch.equal(v, sd[k]) for k, v in got.items()))
+        quiet_call(train_app.main, argv + ["--steps", "2"])
+        with open(os.path.join(d, "train_metrics.jsonl")) as fh:
+            losses = [json.loads(line)["loss_total"] for line in fh]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"tensors": len(got), "equal_before_step_1": exact,
+            "losses": losses}
+
+
+def profiling_phase(cfg, val, dev) -> dict:
+    """Phase 21: ``profiling.trace`` around one B=8 ``Predictor.predict``
+    (the trace must name ``ppn_post_kernel``), ``device_latency_ms`` of the
+    post-process at B=1 on the snapshot's map (200 and 400 calls, the min of
+    5 runs each) beside the wrapper's host time, and a forward on a NaN image
+    under ``debug.checking()`` (must raise, naming a module) and outside it
+    (must not)."""
+    from ppn_tpu_torch.inference import Predictor
+    from ppn_tpu_torch.ops import cuda_post
+    from ppn_tpu_torch.utils import debug, profiling
+
+    pred = Predictor.from_npz(cfg, SNAPSHOT)
+    images = np.stack([val[i]["image"] for i in range(8)])
+    pred.predict(images)
+    d = tempfile.mkdtemp(prefix="trace_", dir=os.path.join(ROOT, "build"))
+    try:
+        with profiling.trace(d, device=dev):
+            pred.predict(images)
+        with open(os.path.join(d, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    post = [e for e in kernels if e["name"].startswith("ppn_post_kernel")]
+    x1 = torch.from_numpy(images[:1]).to(dev)
+    with torch.no_grad():
+        fm1 = pred.model(x1)
+    call = functools.partial(cuda_post.postprocess_batch_cuda, cfg.model,
+                             fm1)
+    latency = profiling.device_latency_ms(call, iters=200, repeats=5)
+    wrapper_us = host_us(call, 200)
+    nan = torch.full(x1.shape, float("nan"), device=dev)
+    with torch.no_grad():
+        unchecked = bool(torch.isnan(pred.model(nan)).any())
+        try:
+            with debug.checking():
+                pred.model(nan)
+            raised = ""
+        except FloatingPointError as e:
+            raised = str(e)
+    return {"kernels_in_trace": len(kernels), "post_in_trace": len(post),
+            "post_trace_us": sum(e.get("dur", 0) for e in post),
+            "post_device_latency_ms_b1": latency,
+            "post_wrapper_host_us_b1": wrapper_us,
+            "nan_passes_unchecked": unchecked, "checking_raised": raised}
 
 
 def main() -> int:
@@ -921,7 +1255,136 @@ def main() -> int:
         f"graph of 50 launches; back to back {w_eager_ms:.4f} ms), plain "
         f"{wp_ms:.3f} ms, bound {w_bound:.6f} ms (bytes) | {card}")
 
-    # ---- 17. report ---------------------------------------------------------
+    # ---- 17. data-parallel training, one rank over NCCL ---------------------
+    dp1 = dp_one_rank(cfg, train_ds, val, dev)
+    ref, nccl = dp1["no_group"], dp1["nccl"]
+    dp1_equal = {
+        "state": all(torch.equal(v, nccl["state"][k])
+                     for k, v in ref["state"].items()),
+        "ema": (ref["ema"] is None) == (nccl["ema"] is None) and all(
+            torch.equal(v, nccl["ema"][k])
+            for k, v in (ref["ema"] or {}).items()),
+        "terms": ref["terms"] == nccl["terms"]}
+    differing = [(i, k) for i, (a, b) in enumerate(zip(ref["terms"],
+                                                        nccl["terms"]))
+                 for k in a if a[k] != b.get(k)]
+    log(f"[dp1] {DP_STEPS} Trainer steps at B={cfg.train.batch_size} bf16 "
+        f"with augmentation from the snapshot: rank 0 of an NCCL world of one "
+        f"against no process group, bitwise equal {dp1_equal}; loss_total "
+        f"{[round(t['loss_total'], 4) for t in nccl['terms']]}; "
+        f"ppn_warp_kernel launches {nccl['warp']} (no group: {ref['warp']}); "
+        f"Trainer.evaluate under the mesh: PCKh "
+        f"{nccl['pckh']['pckh/mean']:.4f}, ppn_post_kernel launches "
+        f"{nccl['post']}; (step, term) differing: {differing}")
+    if (not all(dp1_equal.values()) or nccl["warp"] != DP_STEPS
+            or ref["warp"] != DP_STEPS or nccl["post"] != 2):
+        raise AssertionError(f"one-rank data parallel: {dp1_equal}, "
+                             f"{nccl['warp']} warp and {nccl['post']} post "
+                             "launches")
+    dp1_report = {"bitwise_equal": dp1_equal, "warp_launches": nccl["warp"],
+                  "post_launches_evaluate": nccl["post"],
+                  "pckh": nccl["pckh"]["pckh/mean"]}
+    del dp1, ref, nccl
+
+    # ---- 18. data-parallel training, two ranks on the card over gloo -------
+    f32 = constant_lr(cfg, dtype="float32", batch_size=8)
+    bf16 = constant_lr(cfg)
+    rng = np.random.default_rng(18)
+    cases = {"f32": (f32, [{k: v.cpu() for k, v in cache.batch(
+                 rng.choice(TRAIN_IMAGES, 8, replace=False)).items()}]),
+             "bf16": (bf16, [{k: v.cpu() for k, v in cache.batch(
+                 rng.choice(TRAIN_IMAGES, bf16.train.batch_size,
+                            replace=False)).items()}
+                 for _ in range(DP_BF16_STEPS)])}
+    from ppn_tpu_torch.parallel import make_mesh
+
+    one = dp_steps(cases, make_mesh(device=dev))
+    d = tempfile.mkdtemp(prefix="dp2_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(dp_rank, args=(2, free_port(), d, cases),
+                                    nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=True)
+                 for r in (0, 1)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    dp2 = {"spawn_s": spawn_s}
+    for r, res in enumerate(ranks):
+        want = one["f32"]["terms"][0]
+        got = res["f32"]["terms"][0]
+        terms_rel = max(abs(got[k] - want[k]) / abs(want[k])
+                        for k in want if k.startswith("loss_"))
+        state_rel, worst = max_rel_state(res["f32"]["state"],
+                                         one["f32"]["state"])
+        bf16_rel = max(abs(g["loss_total"] - w["loss_total"])
+                       / abs(w["loss_total"]) for g, w in
+                       zip(res["bf16"]["terms"], one["bf16"]["terms"]))
+        dp2[f"rank{r}"] = {
+            "f32_loss_rel": terms_rel, "f32_state_rel": state_rel,
+            "f32_worst_tensor": worst, "bf16_loss_rel": bf16_rel,
+            "launches": [res["f32"]["launches"], res["bf16"]["launches"]],
+            "bf16_step_ms_median": statistics.median(res["bf16"]["ms"])}
+        log(f"[dp2] rank {r} of 2 (gloo, both on cuda:0): f32 B=8 one step "
+            f"loss terms worst rel {terms_rel:.3g}, state worst "
+            f"{state_rel:.3g}·max|p| ({worst}); bf16 B=32 {DP_BF16_STEPS} "
+            f"steps loss_total worst rel {bf16_rel:.3g}; ppn_warp_kernel "
+            f"launches {res['f32']['launches']} + {res['bf16']['launches']};"
+            f" bf16 step median {statistics.median(res['bf16']['ms']):.3f} "
+            f"ms (16 rows) | {card}")
+        if (terms_rel > 1e-5 or state_rel > 1e-5 or bf16_rel > 2e-3
+                or res["f32"]["launches"] != 1
+                or res["bf16"]["launches"] != DP_BF16_STEPS):
+            raise AssertionError(f"two-rank step disagrees: {dp2}")
+    dp2["one_process_bf16_step_ms_median"] = statistics.median(
+        one["bf16"]["ms"])
+    log(f"[dp2] one process on the joined batch: bf16 step median "
+        f"{dp2['one_process_bf16_step_ms_median']:.3f} ms (32 rows); the "
+        f"two ranks share one card, so their times say nothing of two cards "
+        f"(spawn and both ranks {spawn_s:.1f} s) | {card}")
+    del one, ranks, cases
+
+    # ---- 19. export: the pipeline through torch.export, against Predictor --
+    exp = export_phase(cfg, val, dev)
+    log(f"[export] B=8 on the card: {exp['bytes']} bytes, export "
+        f"{exp['export_s']:.1f} s, reload {exp['load_s']:.1f} s; on the "
+        f"protocol's first 8 images valid equal to Predictor.predict's "
+        f"{exp['valid_equal']} ({exp['persons']} persons), floats max ulp "
+        f"{exp['max_ulp']}; median of 20 calls: exported "
+        f"{exp['exported_ms_b8']:.3f} ms, Predictor.predict "
+        f"{exp['predict_ms_b8']:.3f} ms; post kernel launches in the "
+        f"exported call {exp['post_launches_exported']}; plain post-process "
+        f"at B=8, bounded NMS {exp['plain_post_bounded_ms_b8']:.3f} ms, "
+        f"early exit {exp['plain_post_early_exit_ms_b8']:.3f} ms | {card}")
+    if not exp["valid_equal"] or exp["max_ulp"] > ULP_LIMIT:
+        raise AssertionError(f"exported pipeline disagrees: {exp}")
+
+    # ---- 20. --pretrained: a run-time torchvision state dict ----------------
+    pre = pretrained_phase()
+    log(f"[pretrained] apps/train.main --pretrained: backbone equal to the "
+        f"file's {pre['tensors']} tensors before step 1 "
+        f"{pre['equal_before_step_1']}; loss_total over 2 steps "
+        f"{[round(v, 4) for v in pre['losses']]}")
+    if (not pre["equal_before_step_1"] or len(pre["losses"]) != 2
+            or not all(math.isfinite(v) for v in pre["losses"])):
+        raise AssertionError(f"--pretrained: {pre}")
+
+    # ---- 21. profiling and debug --------------------------------------------
+    prof = profiling_phase(cfg, val, dev)
+    prof["post_graph_ms_b1"] = times[1][0]
+    log(f"[profile] trace of one B=8 predict: {prof['kernels_in_trace']} "
+        f"kernels, ppn_post_kernel {prof['post_in_trace']} "
+        f"({prof['post_trace_us']} µs); device_latency_ms of the post "
+        f"kernel's wrapper at B=1 {prof['post_device_latency_ms_b1']:.4f} ms "
+        f"(the wrapper's host time {prof['post_wrapper_host_us_b1']:.1f} µs "
+        f"a call; CUDA-graph replay, phase 6: {times[1][0]:.4f} ms) | {card}")
+    log(f"[debug] NaN image: passes unchecked {prof['nan_passes_unchecked']}"
+        f"; under debug.checking() raised: {prof['checking_raised']!r}")
+    if (not prof["post_in_trace"] or not prof["checking_raised"]
+            or not prof["nan_passes_unchecked"]):
+        raise AssertionError(f"profiling/debug: {prof}")
+
+    # ---- 22. report ---------------------------------------------------------
     k_ms, p_ms, bound, whole, eager_ms, call_us = times[B]
     k1_ms, p1_ms, bound1, whole1, eager1_ms, call1_us = times[1]
     log(json.dumps({"serving_slice": {
@@ -931,6 +1394,10 @@ def main() -> int:
         "b1_latency": latency, "b1_split_ms": split, "server": server,
         "video": videos}}))
     log(json.dumps({"evaluation_slice": evaluation}))
+    log(json.dumps({"ninth_slice": {
+        "data_parallel_one_rank": dp1_report,
+        "data_parallel_two_ranks": dp2, "export": exp, "pretrained": pre,
+        "profiling": prof}}))
     log(card)   # the nvidia-smi name,power.limit line, as it prints it
     log(json.dumps({"kernels": [{
         "name": "ppn_post_kernel", "route": "cuda",
@@ -957,6 +1424,8 @@ def main() -> int:
         "launches_training_path": post_train_launches,
         "launches_evaluation_path": sum(
             v["launches"] for v in evaluation.values()),
+        "launches_mesh_evaluate": dp1_report["post_launches_evaluate"],
+        "launches_exported_pipeline": exp["post_launches_exported"],
     }, {
         "name": "ppn_warp_kernel", "route": "cuda",
         "source": "ppn_tpu_torch/csrc/warp.cu",
@@ -971,6 +1440,9 @@ def main() -> int:
         "train_img_per_s_b32": 1e3 * bs / step_med,
         "train_stage_ms": stages, "overfit_first": curve[0],
         "overfit_last10_mean": tail,
+        "launches_data_parallel_one_rank": dp1_report["warp_launches"],
+        "launches_per_rank_two_ranks": [
+            dp2[f"rank{r}"]["launches"] for r in (0, 1)],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

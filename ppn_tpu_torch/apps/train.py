@@ -5,18 +5,28 @@ Examples:
     python -m ppn_tpu_torch.apps.train --config tiny_test --steps 200 \
         --overfit 8 --device cpu
     python -m ppn_tpu_torch.apps.train --config mpii_r18_384 --steps 1000
+    # data parallel on N cards of one host: one rank per card
+    torchrun --nproc_per_node N -m ppn_tpu_torch.apps.train \
+        --config mpii_r18_384 --steps 1000
 
-``--ini`` applies a reference-style config.ini over ``--config``; the
-other flags, and ``--set`` last, apply over that. Not ported yet, and
-refused with the ROADMAP.md item that brings them: ``--data mpii|coco``
-(the real-data loaders), ``--pretrained`` (the torchvision weight
-importer) and ``--steps-per-call > 1`` (the K-step device loop).
+Under a launcher (torchrun, or any that sets ``MASTER_ADDR``,
+``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE``) every rank joins the process
+group (``parallel.multihost.initialize``: NCCL on cards, gloo with
+``--device cpu``), takes ``cuda:LOCAL_RANK``, and trains its slice of each
+global batch of ``--batch-size`` rows over the mesh ``train.mesh_shape``;
+rank 0 writes the checkpoints and logs. A launcher's world that cannot be
+joined raises. ``--ini`` applies a reference-style config.ini over
+``--config``; the other flags, and ``--set`` last, apply over that. Not
+ported yet, and refused with the ROADMAP.md item that brings them:
+``--data mpii|coco`` (the real-data loaders) and ``--steps-per-call > 1``
+(the K-step device loop).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from ppn_tpu_torch.configs import resolve_config
 
@@ -61,8 +71,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="override the config's backbone")
     p.add_argument("--pretrained", default=None, metavar="PATH",
                    help="torchvision-format ResNet .pth to initialize the "
-                        "backbone from (not ported: ROADMAP.md queue 1 "
-                        "item 9)")
+                        "backbone from (weights and BatchNorm statistics)")
     p.add_argument("--init-npz", default=None, metavar="PATH",
                    help="fine-tune from a committed inference snapshot "
                         "(.npz): params+BN loaded, optimizer/schedule fresh")
@@ -79,7 +88,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "batches there. auto: on when the dataset fits "
                         "comfortably")
     p.add_argument("--device", default=None,
-                   help="torch device to train on (default: cuda)")
+                   help="torch device to train on (default: cuda, or "
+                        "cuda:LOCAL_RANK under a launcher)")
     return p
 
 
@@ -105,10 +115,6 @@ def make_datasets(cfg, args):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.pretrained:
-        raise NotImplementedError(
-            "--pretrained (the torchvision weight importer, "
-            "utils/torch_import.py) is not ported (ROADMAP.md queue 1 item 9)")
     cfg = resolve_config(args.config, args.ini)
 
     updates = {}
@@ -141,12 +147,22 @@ def main(argv=None):
 
         cfg = apply_overrides(cfg, args.overrides)
 
+    import torch
+
     from ppn_tpu_torch import resolve_device
     from ppn_tpu_torch.data.pipeline import infinite_batches
+    from ppn_tpu_torch.parallel import make_mesh, shard_batch
+    from ppn_tpu_torch.parallel.multihost import initialize, is_primary
     from ppn_tpu_torch.train.trainer import Trainer, check_ported
 
     check_ported(cfg)
     device = resolve_device(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        if device.index is None:
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    initialize(backend="nccl" if device.type == "cuda" else "gloo")
+    mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes, device)
     train_ds, val_ds = make_datasets(cfg, args)
     Hc, Wc = cfg.model.insize
     px_bytes = 1 if cfg.data.transfer_uint8 else 4  # uint8 vs float32 cache
@@ -158,22 +174,26 @@ def main(argv=None):
         from ppn_tpu_torch.data.device_cache import DeviceCache
 
         cache = DeviceCache(train_ds, image_uint8=cfg.data.transfer_uint8,
-                            device=device)
-        print(f"device cache: {len(train_ds)} samples, "
-              f"{cache.nbytes() / 1e6:.0f} MB on {device}")
+                            device=device, mesh=mesh)
+        if is_primary():
+            print(f"device cache: {len(train_ds)} samples, "
+                  f"{cache.nbytes() / 1e6:.0f} MB on {device}")
         batches = cache.infinite_batches(cfg.train.batch_size,
                                          seed=cfg.train.seed)
     else:
-        batches = infinite_batches(train_ds, cfg.train.batch_size,
-                                   seed=cfg.train.seed,
-                                   image_uint8=cfg.data.transfer_uint8)
+        batches = (shard_batch(mesh, b) for b in infinite_batches(
+            train_ds, cfg.train.batch_size, seed=cfg.train.seed,
+            image_uint8=cfg.data.transfer_uint8))
     # --overfit memorizes fixed samples; augmentation would defeat that.
     augment = False if args.overfit else None
     trainer = Trainer(cfg, batches, val_dataset=val_ds, logdir=args.log_dir,
-                      augment=augment, device_cache=cache,
-                      init_npz=args.init_npz, device=device)
+                      augment=augment, pretrained=args.pretrained,
+                      device_cache=cache, init_npz=args.init_npz,
+                      device=device, mesh=mesh)
     try:
         final = trainer.run()
+        if not is_primary():
+            return
         print("final:", {k: round(v, 4) for k, v in final.items()})
         if val_ds is not None:
             print("eval:", {k: round(v, 4)

@@ -222,8 +222,8 @@ class TrainConfig:
     checkpoint_dir: str = "/tmp/ppn_tpu_ckpt"
     resume: bool = True
     dtype: str = "bfloat16"           # compute dtype; params stay float32
-    # Kept for config parity; the port trains on one device and raises on
-    # a mesh over more than one (ROADMAP queue 1 item 12).
+    # The data-parallel mesh over the ranks of the torch.distributed world
+    # (parallel/mesh.make_mesh): -1 absorbs the world size.
     mesh_shape: Tuple[int, ...] = (-1,)
     mesh_axes: Tuple[str, ...] = ("data",)
     # SGD steps per dispatch; only 1 is ported (the K-step loop is ROADMAP

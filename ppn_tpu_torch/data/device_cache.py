@@ -1,10 +1,15 @@
-"""Device-resident dataset cache (port of ``ppn_tpu/data/device_cache.py``,
-one device).
+"""Device-resident dataset cache (port of ``ppn_tpu/data/device_cache.py``).
 
 The whole collated dataset is uploaded once, images as uint8 (the source
 is 8-bit; the augmentation or the model normalizes on the device), and
 each batch is gathered on the card from a (B,) index vector. The sampling
 order is the JAX class's: the same numpy generators draw the same indices.
+
+Under a data-parallel mesh every rank holds the whole cache, draws the
+same global index vector and gathers only its slice of it. The JAX class's
+round-robin capacity sharding (``DeviceCache(mesh=)``, ``reshard``), which
+pays only once a dataset outgrows one card, is not ported (ROADMAP queue
+1, beside the K-step loop).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 
 from ppn_tpu_torch import resolve_device
 from ppn_tpu_torch.data.pipeline import collate
+from ppn_tpu_torch.parallel.mesh import shard_rows
 
 
 def _capacity_guard(device: torch.device, nbytes: int) -> None:
@@ -33,10 +39,13 @@ def _capacity_guard(device: torch.device, nbytes: int) -> None:
 
 class DeviceCache:
     """Holds one collated dataset on ``device`` (``cuda`` unless asked
-    otherwise) and yields batches gathered there."""
+    otherwise) and yields batches gathered there; under ``mesh`` (a
+    ``parallel.Mesh``) each batch is this rank's slice of the global one."""
 
-    def __init__(self, dataset, image_uint8: bool = True, device=None):
+    def __init__(self, dataset, image_uint8: bool = True, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         n = len(dataset)
         host = collate([dataset[i] for i in range(n)],
                        image_uint8=image_uint8)
@@ -50,7 +59,11 @@ class DeviceCache:
         return sum(v.numel() * v.element_size() for v in self.data.values())
 
     def batch(self, idx) -> Dict[str, torch.Tensor]:
-        i = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        """The rows ``idx`` (under a mesh: this rank's slice of them)."""
+        idx = np.asarray(idx, np.int64)
+        if self.mesh is not None:
+            idx = idx[shard_rows(self.mesh, len(idx))]
+        i = torch.as_tensor(np.ascontiguousarray(idx), device=self.device)
         return {k: v.index_select(0, i) for k, v in self.data.items()}
 
     def epoch_shuffled_batches(self, batch_size: int, *, seed: int = 0

@@ -15,11 +15,33 @@ pixel, so ``same_pads`` computes the pads per layer from the input size.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ppn_tpu_torch.parallel.mesh import all_reduce_sum
+
+# The process group whose ranks' batches training-mode BatchNorm takes its
+# statistics over (None: this process's batch); set by global_batch_stats.
+_STATS_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "ppn_bn_stats_group", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_stats(group):
+    """Inside the block, training-mode BatchNorm takes its statistics over
+    the joined batch of every rank of ``group`` (a process group, or None
+    for this process's batch alone), as the JAX package's BatchNorm does
+    over a batch sharded under ``jit``."""
+    token = _STATS_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _STATS_GROUP.reset(token)
 
 
 def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -83,7 +105,13 @@ class BatchNorm(nn.Module):
     biased variance (``torch.nn.BatchNorm2d`` would use the unbiased one).
     Flax then normalizes in f32, the ``dtype`` input, scale and bias
     promoted against the f32 statistics, and rounds once to ``dtype``.
-    Gradients flow through the batch statistics."""
+    Gradients flow through the batch statistics.
+
+    The statistics come from the per-channel sums Σx, Σx² and the count,
+    which inside ``global_batch_stats(group)`` are summed over the group's
+    ranks first (one differentiable all-reduce), so every rank normalizes
+    by, and updates its running statistics with, the joined batch's. One
+    process computes the same formula on its own sums."""
 
     momentum = 0.9
 
@@ -99,10 +127,16 @@ class BatchNorm(nn.Module):
         dt = self.dtype
         if self.training:
             xf = x.to(dt).float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min(
-                torch.square(xf).mean(dim=(0, 2, 3)) - torch.square(mean),
-                0.0)
+            c = xf.shape[1]
+            sums = torch.cat([xf.sum(dim=(0, 2, 3)),
+                              torch.square(xf).sum(dim=(0, 2, 3)),
+                              xf.new_full((1,), xf.numel() // c)])
+            group = _STATS_GROUP.get()
+            if group is not None:
+                sums = all_reduce_sum(sums, group)
+            s1, s2, count = sums.split([c, c, 1])
+            mean = s1 / count
+            var = torch.clamp_min(s2 / count - torch.square(mean), 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(
@@ -181,6 +215,7 @@ class ResNet(nn.Module):
                  block=BasicBlock, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
+        self.stage_sizes = tuple(stage_sizes)
         self.stem = ConvBN(3, widths[0], 7, 2, dtype)
         blocks = []
         cin = widths[0]

@@ -64,16 +64,25 @@ def smooth3x3(img: torch.Tensor) -> torch.Tensor:
 
 def sample_params(cfg: PPNConfig, dcfg: DataConfig,
                   generator: torch.Generator, bboxes: torch.Tensor,
-                  valid: torch.Tensor) -> AugmentParams:
+                  valid: torch.Tensor, shard: tuple[int, int] = (0, 1)
+                  ) -> AugmentParams:
     """The draws of the JAX package's ``_sample_params`` for a whole batch,
     from ``generator`` on the batch's device: angle, scale, translation,
     flip, the categorical person pick and the crop gate, the crop fraction
-    and the four color factors. bboxes (B, P, 4) cxcywh, valid (B, P)."""
+    and the four color factors. bboxes (B, P, 4) cxcywh, valid (B, P).
+
+    ``shard = (i, n)``: the batch is rows ``i·B … (i+1)·B`` of a global
+    batch of ``n·B``. The draws are made for the global batch and this
+    slice kept, so that ranks holding equal generators augment their
+    slices as one process would augment the joined batch."""
     H, W = cfg.insize
     B = valid.shape[0]
     dev = bboxes.device
-    u = torch.rand((B, 11), generator=generator, device=dev)
-    gum = torch.rand(tuple(valid.shape), generator=generator, device=dev)
+    i, n = shard
+    rows = slice(i * B, (i + 1) * B)
+    u = torch.rand((n * B, 11), generator=generator, device=dev)[rows]
+    gum = torch.rand((n * B, *valid.shape[1:]), generator=generator,
+                     device=dev)[rows]
 
     def uniform(col: int, lo: float, hi: float) -> torch.Tensor:
         return u[:, col] * (hi - lo) + lo
@@ -185,14 +194,15 @@ def apply_augment(cfg: PPNConfig, dcfg: DataConfig, params: AugmentParams,
 
 def augment_batch(cfg: PPNConfig, dcfg: DataConfig,
                   generator: torch.Generator, batch,
-                  device=None) -> Dict[str, torch.Tensor]:
+                  device=None, shard: tuple[int, int] = (0, 1)
+                  ) -> Dict[str, torch.Tensor]:
     """Draw and apply one batch's augmentation on ``device`` (``cuda``
     unless asked otherwise; ``generator`` must live there). ``batch`` holds
     image (B, H, W, 3) uint8 or float, keypoints, visible, bboxes, valid,
-    as arrays or tensors."""
+    as arrays or tensors; ``shard`` as ``sample_params`` takes it."""
     dev = resolve_device(device)
     batch = {k: torch.as_tensor(batch[k]).to(dev)
              for k in ("image", "keypoints", "visible", "bboxes", "valid")}
     params = sample_params(cfg, dcfg, generator, batch["bboxes"],
-                           batch["valid"])
+                           batch["valid"], shard)
     return apply_augment(cfg, dcfg, params, batch)

@@ -43,23 +43,36 @@ def suppression_matrix(cfg: PPNConfig, props: Proposals):
     return overlap & earlier & above[..., None, :], above
 
 
-def nms_batch(cfg: PPNConfig, props: Proposals) -> NMSResult:
-    """Exact greedy NMS via parallel waves, all images and classes at once.
+def _wave(M: torch.Tensor, kept: torch.Tensor, undecided: torch.Tensor):
+    """One wave: drop every undecided proposal blocked by a kept one, then
+    keep every undecided proposal with no undecided earlier overlapping
+    one. Returns (kept, undecided)."""
+    undecided = undecided & ~(M & kept[..., None, :]).any(-1)
+    newly_keep = undecided & ~(M & undecided[..., None, :]).any(-1)
+    return kept | newly_keep, undecided & ~newly_keep
 
-    Each wave drops every undecided proposal blocked by a kept one, then
-    keeps every undecided proposal with no undecided earlier overlapping
-    one — the JAX ``nms_single`` body. Finished images stay fixed, so one
-    loop serves the batch."""
+
+def nms_batch(cfg: PPNConfig, props: Proposals,
+              bounded: bool = False) -> NMSResult:
+    """Exact greedy NMS via parallel waves, all images and classes at once
+    (the JAX ``nms_single`` body). Finished images stay fixed, so one loop
+    serves the batch.
+
+    The loop ends when nothing is undecided, a test on the data that
+    ``torch.export`` cannot trace. ``bounded`` runs exactly N = H'·W'
+    waves instead: each wave decides at least the earliest undecided
+    proposal of every unfinished (image, class), so N waves reach the
+    fixpoint, and a wave after it changes nothing — the result is bitwise
+    the early-exit loop's."""
     M, above = suppression_matrix(cfg, props)
     kept = torch.zeros_like(above)
     undecided = above.clone()
-    while bool(undecided.any()):
-        blocked = (M & kept[..., None, :]).any(-1)
-        undecided &= ~blocked
-        higher_open = (M & undecided[..., None, :]).any(-1)
-        newly_keep = undecided & ~higher_open
-        kept |= newly_keep
-        undecided &= ~newly_keep
+    if bounded:
+        for _ in range(M.shape[-1]):
+            kept, undecided = _wave(M, kept, undecided)
+    else:
+        while bool(undecided.any()):
+            kept, undecided = _wave(M, kept, undecided)
     keep = kept.transpose(1, 2).reshape(props.score.shape)
     return NMSResult(keep=keep, score=torch.where(keep, props.score, 0.0))
 

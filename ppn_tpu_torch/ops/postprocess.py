@@ -20,10 +20,13 @@ from ppn_tpu_torch.ops import parse as parseops
 from ppn_tpu_torch.ops.parse import People
 
 
-def postprocess_batch_plain(cfg: PPNConfig, feature_map: torch.Tensor) -> People:
-    """(B, H', W', C) feature map → batched People, plain PyTorch."""
+def postprocess_batch_plain(cfg: PPNConfig, feature_map: torch.Tensor,
+                            bounded: bool = False) -> People:
+    """(B, H', W', C) feature map → batched People, plain PyTorch;
+    ``bounded``: NMS in a fixed number of waves, which ``torch.export``
+    can trace (``ops/nms.nms_batch``)."""
     act, props = dec.decode(cfg, feature_map)
-    nms = nmsops.nms_batch(cfg, props)
+    nms = nmsops.nms_batch(cfg, props, bounded=bounded)
     return parseops.parse_batch(cfg, act, props, nms)
 
 

@@ -7,6 +7,9 @@ generator state, to ``ckpt_{step:08d}.pt`` — a name that no Orbax directory
 uses, so that a shared ``checkpoint_dir`` is never misread. Each file is
 written to a temporary name and then renamed into place, so a crash leaves
 either the old set or the new one. Saves are synchronous.
+
+Under a process group only the primary rank writes, and every rank waits
+at a barrier until it has; every rank restores from the same file.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import re
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from ppn_tpu_torch.parallel.multihost import is_primary
 from ppn_tpu_torch.train.steps import TrainState, create_train_state
 
 _NAME = re.compile(r"^ckpt_(\d{8})\.pt$")
@@ -36,6 +41,14 @@ class Checkpointer:
         return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
 
     def save(self, step: int, state: TrainState) -> None:
+        """Write ``state`` at ``step`` (the primary rank only; then every
+        rank of a process group meets at a barrier)."""
+        if is_primary():
+            self._write(step, state)
+        if dist.is_initialized():
+            dist.barrier()
+
+    def _write(self, step: int, state: TrainState) -> None:
         payload = {
             "step": step,
             "model": state.model.state_dict(),

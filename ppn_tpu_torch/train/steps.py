@@ -12,6 +12,14 @@ term by term: ``g ← g + wd·p`` on parameters with ``ndim > 1`` only,
 schedule at the number of steps already taken (0 on the first step under
 warmup). The multi-step ``lax.scan`` loop (``make_multi_train_step``) is
 not ported.
+
+Data parallel (``mesh`` of more than one rank, ``parallel/mesh.py``): each
+rank augments and encodes its slice of the global batch, BatchNorm takes
+its statistics over the joined batch (``nn/resnet.global_batch_stats``),
+and the gradients are averaged over the data group by one all-reduce of a
+flat buffer. The loss averages over the rank's rows, so with equal slices
+that mean is the joined batch's gradient, and every rank applies the same
+update to the same replicated state.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 from ppn_tpu_torch import resolve_device
 from ppn_tpu_torch.configs import Config
 from ppn_tpu_torch.nn.model import DTYPES, PoseProposalNet
+from ppn_tpu_torch.nn.resnet import global_batch_stats
 from ppn_tpu_torch.ops import encode as enc
 from ppn_tpu_torch.ops.augment import augment_batch
 from ppn_tpu_torch.ops.tta import flip_tta_forward
@@ -121,14 +130,23 @@ def _seeded_model(cfg: Config, seed: int) -> PoseProposalNet:
 
 
 def create_train_state(cfg: Config, seed: Optional[int] = None,
-                       device=None) -> TrainState:
+                       device=None, pretrained: Optional[str] = None
+                       ) -> TrainState:
     """A fresh train state on ``device`` (``cuda`` unless asked otherwise):
     a training-mode model seeded from ``seed`` (default the config's), zero
     traces, the EMA seeded from the parameters when ``ema_decay > 0``, and
-    a generator on the device seeded likewise."""
+    a generator on the device seeded likewise. ``pretrained``: a
+    torchvision-format ResNet ``.pth`` whose weights and BatchNorm
+    statistics initialize the backbone (``utils/torch_import.py``)."""
     dev = resolve_device(device)
     seed = cfg.train.seed if seed is None else seed
-    model = _seeded_model(cfg, seed).to(dev).train()
+    model = _seeded_model(cfg, seed)
+    if pretrained:
+        from ppn_tpu_torch.utils.torch_import import load_torch_resnet_file
+
+        used = load_torch_resnet_file(model.backbone, pretrained)
+        print(f"initialized backbone from {pretrained} ({used} tensors)")
+    model = model.to(dev).train()
     params = dict(model.named_parameters())
     trace = {n: torch.zeros_like(p) for n, p in params.items()}
     ema = ({n: p.detach().clone() for n, p in params.items()}
@@ -144,24 +162,49 @@ def _to_device(batch, dev: torch.device) -> Dict[str, torch.Tensor]:
 
 
 def loss_and_grads(cfg: Config, state: TrainState, batch,
-                   augment: bool = False):
+                   augment: bool = False, mesh=None):
     """Augment (when asked) → encode → forward in training mode (which
     updates the BatchNorm running statistics) → loss → backward. Returns
-    (loss terms, gradients by parameter name)."""
+    (loss terms, gradients by parameter name) of this rank's rows; under a
+    ``mesh`` the augmentation draws and the BatchNorm statistics are the
+    joined batch's."""
     m = cfg.model
     dev = state.device
     model = state.model.train()
     batch = _to_device(batch, dev)
+    group = None if mesh is None else mesh.group()
     if augment:
+        shard = (0, 1) if mesh is None else (mesh.rank(), mesh.size())
         batch = augment_batch(m, cfg.data, state.generator, batch,
-                              device=dev)
+                              device=dev, shard=shard)
     targets = enc.encode_batch(m, batch["keypoints"], batch["visible"],
                                batch["bboxes"], batch["valid"])
-    _, terms = ppn_loss(m, model(batch["image"]), targets)
+    with global_batch_stats(group):
+        _, terms = ppn_loss(m, model(batch["image"]), targets)
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(terms["loss_total"], params)
     return ({k: v.detach() for k, v in terms.items()},
             dict(zip(names, grads)))
+
+
+def average_over_data(mesh, tensors: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """The mean of each (f32) tensor over the mesh's data group: one
+    all-reduce of one flat buffer. Without a process group, the tensors as
+    they are."""
+    group = None if mesh is None else mesh.group()
+    if group is None:
+        return tensors
+    names = list(tensors)
+    flat = torch.cat([tensors[n].reshape(-1) for n in names])
+    torch.distributed.all_reduce(flat, group=group)
+    flat /= mesh.size()
+    parts = flat.split([tensors[n].numel() for n in names])
+    # each back in its tensor's memory layout (cuDNN's weight gradients are
+    # channels_last): grad_norm sums in memory order, so a contiguous copy
+    # would part from one process's grad_norm in the last bits
+    return {n: torch.empty_like(tensors[n]).copy_(p.view_as(tensors[n]))
+            for n, p in zip(names, parts)}
 
 
 @torch.no_grad()
@@ -188,13 +231,17 @@ def sgd_update(cfg: Config, state: TrainState,
 
 
 def train_step(cfg: Config, state: TrainState, batch,
-               augment: bool = False) -> Dict[str, torch.Tensor]:
+               augment: bool = False, mesh=None) -> Dict[str, torch.Tensor]:
     """One SGD step on ``state`` in place. ``batch`` holds image (B, H, W, 3)
     uint8 or f32 in [0, 1], keypoints (B, P, K, 2), visible (B, P, K),
-    bboxes (B, P, 4) and valid (B, P), as arrays or tensors. Returns the
-    loss terms and ``grad_norm`` (the global norm of the gradients) as 0-d
-    tensors on the device; reading them waits for the step."""
-    terms, grads = loss_and_grads(cfg, state, batch, augment)
+    bboxes (B, P, 4) and valid (B, P), as arrays or tensors — under a
+    ``mesh``, this rank's slice of the global batch. Returns the loss terms
+    and ``grad_norm`` (the global norm of the gradients) of the global
+    batch as 0-d tensors on the device; reading them waits for the step."""
+    terms, grads = loss_and_grads(cfg, state, batch, augment, mesh)
+    both = average_over_data(mesh, {**grads, **terms})
+    grads = {n: both[n] for n in grads}
+    terms = {k: both[k] for k in terms}
     terms["grad_norm"] = torch.sqrt(
         sum(torch.sum(torch.square(g)) for g in grads.values()))
     sgd_update(cfg, state, grads)

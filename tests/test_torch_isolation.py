@@ -142,3 +142,30 @@ def test_chip_smoke_fails_without_cuda(no_cuda, capsys):
     spec.loader.exec_module(mod)
     assert mod.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_ninth_slice_is_scanned_and_defaults_to_cuda(no_cuda, tmp_path):
+    """The data-parallel, export, profiling, debug and weight-import modules
+    are among the files scanned for imports; their entry points run on
+    CUDA unless asked otherwise."""
+    scanned = {os.path.relpath(f, ROOT) for f in _port_files()}
+    for name in ("parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/multihost.py", "utils/export.py",
+                 "utils/profiling.py", "utils/debug.py",
+                 "utils/torch_import.py"):
+        assert os.path.join("ppn_tpu_torch", name) in scanned
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.nn.model import PoseProposalNet
+    from ppn_tpu_torch.parallel import make_mesh
+    from ppn_tpu_torch.utils import profiling
+    from ppn_tpu_torch.utils.export import export_pipeline
+
+    cfg = get_config("tiny_test")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_pipeline(cfg, PoseProposalNet(cfg.model), batch=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        with profiling.trace(str(tmp_path)):
+            pass
+    assert make_mesh(device="cpu").device == torch.device("cpu")

@@ -437,7 +437,10 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
     ["--set", "train.mesh_shape=(2,)"]])
 def test_train_cli_refuses_unported_options(flags, tmp_path):
     """Each option not ported yet raises, naming its ROADMAP.md item.
-    ``--ini`` is ported: the INI's step count reaches the trainer."""
+    ``--ini`` is ported: the INI's step count reaches the trainer.
+    ``--pretrained`` is ported: the state before the first step holds the
+    file's backbone. A mesh over more ranks than the world has (one
+    process) is refused, never shrunk to fit."""
     from ppn_tpu_torch.apps import train
 
     argv = ["--device", "cpu", "--config", "tiny_test", "--ckpt-dir",
@@ -447,6 +450,26 @@ def test_train_cli_refuses_unported_options(flags, tmp_path):
         ini.write_text("[training]\nnum_steps = 1\n")
         train.main(argv + ["--ini", str(ini), "--overfit", "2"])
         assert sorted(os.listdir(tmp_path)) == ["ckpt_00000001.pt", "x.ini"]
+        return
+    if flags[0] == "--pretrained":
+        from ppn_tpu_torch.nn.resnet import resnet18
+        from ppn_tpu_torch.utils.torch_import import torchvision_state_dict
+
+        torch.manual_seed(3)
+        sd = torchvision_state_dict(resnet18())
+        torch.save(sd, tmp_path / flags[1])
+        train.main(argv + ["--pretrained", str(tmp_path / flags[1]),
+                           "--overfit", "2", "--steps", "0"])
+        model = torch.load(tmp_path / "ckpt_00000000.pt",
+                           weights_only=True)["model"]
+        assert torch.equal(model["backbone.stem.conv.weight"],
+                           sd["conv1.weight"])
+        assert torch.equal(model["backbone.blocks.7.conv2.bn.running_var"],
+                           sd["layer4.1.bn2.running_var"])
+        return
+    if flags[0] == "--set":
+        with pytest.raises(ValueError, match="does not cover the world of 1"):
+            train.main(argv + flags)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(argv + flags)
