@@ -54,40 +54,61 @@ Phases, each raising on failure:
                --metric oks`` on the COCO snapshot, with the thresholds as
                flags and from a config.ini: its JSON equal to the library's
                summary rounded to 4 places;
-  9. B=1 latency — ``predict_single`` on uint8 384² images, p50 and p90 of
+  9. real-data input — three file sets written under a temporary
+               directory from the held-out protocol images
+               (``testing.write_mpii_set``/``write_coco_set``): MPII as
+               PNG and as JPEG (quality 95), COCO as PNG; ``apps/evaluate.main
+               --data mpii|coco`` on each with the committed snapshots: PCKh
+               0.976190 ± 3e-3 (PNG) and 0.965608 ± 3e-3 (JPEG) over exactly
+               378 joints, OKS AP 0.945134 ± 5e-3 over exactly 32 GT — the
+               JAX package's values on the same files on its CPU — two post
+               launches each; PIL's and libjpeg-turbo's versions and the
+               sha256 of the JPEGs and PNGs beside the reference's; wall ms
+               per evaluated image on the COCO files, cold and warm, and
+               the share of decoding; ``apps/train.main --data mpii`` on 64
+               training JPEGs (and the 16 held out as the validation
+               split) from the snapshot, B=32, 10 steps: the device cache
+               used, finite losses, one warp launch per step, ``eval:``
+               PCKh from two post launches, the median step time;
+               ``apps/video.main --source <directory of JPEGs>``, 32
+               frames: one post launch per frame (the warm-up frame
+               besides), the first frame's People through the kernel equal
+               to the plain pipeline's in every decision field, fps and
+               p50/p90;
+10. B=1 latency — ``predict_single`` on uint8 384² images, p50 and p90 of
                200 calls after warm-up, without and with TTA, and the split
                of one call: upload, forward, post (kernel device time and
                the wrapper's host time), download;
- 10. server   — ``apps/serve.main`` self-test on the snapshot (64 requests,
+11. server   — ``apps/serve.main`` self-test on the snapshot (64 requests,
                8 client threads, max batch 32, 5 ms window): every request
                bitwise equal to a direct predict at a bucket the server used,
                and one post launch per predict call (warm-up, batches, the
                check's direct predicts);
- 11. video    — ``apps/video.main`` on 64 synthetic 720p frames at 30 fps
+12. video    — ``apps/video.main`` on 64 synthetic 720p frames at 30 fps
                with the on-device resize, pipelined and with
                ``--no-overlap``: one post launch per frame (the warm-up
                frame besides); the first frame's People through the kernel
                equal to the plain pipeline's (resize, model,
                ``postprocess_batch_plain``) in every decision field;
- 12. train step, card against CPU — one ``train_step`` of tiny_test in f32
+13. train step, card against CPU — one ``train_step`` of tiny_test in f32
                (TF32 off), augmentation off, from the same parameters on
                both: loss terms within rel 1e-4;
- 13. training path — mpii_r18_384 at B=32, bf16, augmentation on, 256
+14. training path — mpii_r18_384 at B=32, bf16, augmentation on, 256
                synthetic images in the port's ``DeviceCache``, fine-tuning
                the committed MPII snapshot through ``Trainer.run`` for 30
                steps into a fresh checkpoint directory: finite losses, one
                warp launch per step, a new ``Trainer`` resumes the step and
                the parameters bitwise, ``Trainer.evaluate`` gives PCKh on
                the 16-image protocol through the post kernel;
- 14. training times — the median step time over 20 steps and the
+15. training times — the median step time over 20 steps and the
                CUDA-event times of augment, encode, forward+backward and
                optimizer+EMA over 10 steps;
- 15. overfit  — mpii_r18_384 from a fresh init on 8 fixed images,
+16. overfit  — mpii_r18_384 from a fresh init on 8 fixed images,
                augmentation off, constant lr 0.007, 60 steps: the mean
                loss_total of the last 10 steps under half the first's;
- 16. warp kernel times at B=32 bf16 (a CUDA graph of 50 launches, and back
+17. warp kernel times at B=32 bf16 (a CUDA graph of 50 launches, and back
                to back) beside its plain version and its bound;
- 17. data parallel, one rank — ``Trainer`` on mpii_r18_384 at B=32, bf16,
+18. data parallel, one rank — ``Trainer`` on mpii_r18_384 at B=32, bf16,
                augmentation on, constant lr, 10 steps from the snapshot over
                a ``DeviceCache`` on its mesh (``mesh_shape`` (-1,)): as rank
                0 of an NCCL world of one (``multihost.initialize`` from
@@ -96,7 +117,7 @@ Phases, each raising on failure:
                statistics, EMA, every step's loss terms); one warp launch
                per step; ``Trainer.evaluate`` under the mesh (two post
                launches for the 16 protocol images);
- 18. data parallel, two ranks — two spawned processes share cuda:0 in a
+19. data parallel, two ranks — two spawned processes share cuda:0 in a
                gloo world (NCCL refuses two ranks on one device) and run
                mpii_r18_384 at full width from the snapshot, augmentation
                on, against one process on the joined batch: f32 (TF32 off)
@@ -105,31 +126,31 @@ Phases, each raising on failure:
                bf16 B=32, 5 steps, loss_total within rel 2e-3; one warp
                launch per step and rank; step times per rank beside the
                one process's;
- 19. export   — ``utils/export.export_pipeline`` of the snapshot at B=8 on
+20. export   — ``utils/export.export_pipeline`` of the snapshot at B=8 on
                the card, to bytes and back through ``load_pipeline``, on the
                protocol's first 8 images: ``valid`` equal to
                ``Predictor.predict``'s (the kernel), floats within 4 ulps
                where valid; the medians of 20 calls of each, the artifact's
                size, the export and reload times, and the plain
                post-process with bounded NMS against its early-exit loop;
- 20. --pretrained — ``apps/train.main --pretrained`` with a torchvision-key
+21. --pretrained — ``apps/train.main --pretrained`` with a torchvision-key
                state dict made at run time from a seeded port ResNet-18:
                the backbone equal to the file before step 1, two finite
                steps;
- 21. profiling and debug — ``profiling.trace`` of one B=8 predict names
+22. profiling and debug — ``profiling.trace`` of one B=8 predict names
                ``ppn_post_kernel``; ``device_latency_ms`` of the post kernel's
                wrapper at B=1 beside phase 6's CUDA-graph time; a forward on
                a NaN image raises under ``debug.checking()``, naming a
                module, and passes outside it;
- 22. report  — the serving, evaluation and ninth slices' numbers, the
-               kernels line, then the device line last.
+23. report  — the serving, evaluation, file-input and ninth slices'
+               numbers, the kernels line, then the device line last.
 
 Launch counts are set to 0 just before each path (phase 5 for inference,
-7 for TTA, 8 for each evaluation and CLI run, 9 for B=1, 10 for the server,
-11 for video, 13 for training, 17 for each one-rank run and its
-evaluation, 18 in each rank and in the one process before its steps, 19
-before the exported call) and read just after it; comparison and timing
-launches fall outside those windows.
+7 for TTA, 8 for each evaluation and CLI run, 9 for each CLI run on files,
+10 for B=1, 11 for the server, 12 for video, 14 for training, 18 for each
+one-rank run and its evaluation, 19 in each rank and in the one process
+before its steps, 20 before the exported call) and read just after it;
+comparison and timing launches fall outside those windows.
 """
 
 from __future__ import annotations
@@ -164,8 +185,8 @@ FLOATS = ("kp_box", "kp_score")
 TRAIN_STEPS = 30
 TRAIN_IMAGES = 256
 OVERFIT_STEPS = 60
-DP_STEPS = 10            # phase 17: one rank against no group, bitwise
-DP_BF16_STEPS = 5        # phase 18: two ranks against one process, bf16
+DP_STEPS = 10            # phase 18: one rank against no group, bitwise
+DP_BF16_STEPS = 5        # phase 19: two ranks against one process, bf16
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "artifacts", "mpii_hero_r5_ema_f16.npz")
 COCO_SNAPSHOT = os.path.join(ROOT, "artifacts", "coco_hero_r3_ema_f16.npz")
@@ -184,6 +205,29 @@ OKS_PINS = {
 OKS_TOLERANCE = 5e-3   # about one match flipped at one of the ten OKS
                        # thresholds among 32 GT: bf16 cuDNN logits against
                        # the CPU's
+# The JAX package's values on its CPU (train/steps.make_forward through
+# eval/runner.evaluate_pckh / evaluate_oks) on the 16 held-out protocol
+# images written as files by ppn_tpu_torch/testing.py, read back through
+# ppn_tpu/data/{mpii,coco}.py with native_jpeg=False, at B=8:
+# label -> (config, snapshot, --data, file set, metric, det/nms, value,
+#           the count key, its value, tolerance)
+FILE_PINS = {
+    "mpii_png": ("mpii_r18_384", SNAPSHOT, "mpii", "mpii_png", "pckh",
+                 (0.02, 0.45), 0.976190, "pckh/num_joints", 378, 3e-3),
+    "mpii_jpg": ("mpii_r18_384", SNAPSHOT, "mpii", "mpii_jpg", "pckh",
+                 (0.02, 0.45), 0.965608, "pckh/num_joints", 378, 3e-3),
+    "coco_png": ("coco_r18_384", COCO_SNAPSHOT, "coco", "coco_png", "oks",
+                 (0.02, 0.6), 0.945134, "oks/num_gt", 32, OKS_TOLERANCE),
+}
+# where those values were taken: PIL, its libjpeg-turbo, and the sha256 of
+# the 16 images of each set in file order
+FILE_SET_ORIGIN = {
+    "pil": "12.1.0", "libjpeg_turbo": "3.1.3",
+    "mpii_jpg": ("5776783285796dddcc336b95f88ae3a0"
+                 "63357723851be6541a3ab08e6f992c05"),
+    "mpii_png": ("92622285a2ea5d128164f5362e85e063"
+                 "5d8c299a88b17a2ce0b1dc69e207fcb4")}
+FILE_TRAIN_IMAGES, FILE_TRAIN_STEPS, FILE_VIDEO_FRAMES = 64, 10, 32
 # (angle, scale, tx, flip): the warp cases of tests/test_pallas_warp.py
 WARP_CASES = [(0.0, 1.0, 0.0, False), (0.3, 1.1, 12.0, False),
               (-0.5, 0.8, -7.0, False), (0.7, 1.25, 3.0, True),
@@ -438,7 +482,7 @@ def constant_lr(cfg, **train):
 
 
 def dp_one_rank(cfg, train_ds, val, dev) -> dict:
-    """Phase 17: ``Trainer`` runs of DP_STEPS steps from the snapshot, with
+    """Phase 18: ``Trainer`` runs of DP_STEPS steps from the snapshot, with
     no process group and then as rank 0 of a world of one over NCCL
     (``multihost.initialize`` from the launcher's environment), each over
     a ``DeviceCache`` on its mesh. Returns each run's state, EMA, per-step
@@ -535,7 +579,7 @@ def dp_steps(cases: dict, mesh) -> dict:
 
 def dp_rank(rank: int, world: int, port: int, outdir: str,
             cases: dict) -> None:
-    """Phase 18's ranks: each joins a gloo world on the loopback address
+    """Phase 19's ranks: each joins a gloo world on the loopback address
     (NCCL refuses two ranks on one device), computes on cuda:0 with TF32
     off, and writes ``dp_steps``' results to ``<outdir>/rank<r>.pt``."""
     import torch.distributed as dist
@@ -563,7 +607,7 @@ def max_rel_state(got: dict, want: dict) -> tuple[float, str]:
 
 
 def export_phase(cfg, val, dev) -> dict:
-    """Phase 19: the pipeline exported at B=8 on the card, to bytes and back,
+    """Phase 20: the pipeline exported at B=8 on the card, to bytes and back,
     on the first 8 images of the synthetic protocol, against
     ``Predictor.predict`` (the post kernel) on the same images; times of
     both, of the export and the reload, and of the plain post-process's
@@ -627,7 +671,7 @@ def timed(fn) -> float:
 
 
 def pretrained_phase() -> dict:
-    """Phase 20: ``apps/train.main --pretrained`` on the card with a
+    """Phase 21: ``apps/train.main --pretrained`` on the card with a
     torchvision-key state dict made at run time from a seeded port
     ResNet-18 (with the ``fc`` and ``num_batches_tracked`` entries
     torchvision files carry, which the loader drops). ``--steps 0`` writes
@@ -670,7 +714,7 @@ def pretrained_phase() -> dict:
 
 
 def profiling_phase(cfg, val, dev) -> dict:
-    """Phase 21: ``profiling.trace`` around one B=8 ``Predictor.predict``
+    """Phase 22: ``profiling.trace`` around one B=8 ``Predictor.predict``
     (the trace must name ``ppn_post_kernel``), ``device_latency_ms`` of the
     post-process at B=1 on the snapshot's map (200 and 400 calls, the min of
     5 runs each) beside the wrapper's host time, and a forward on a NaN image
@@ -714,6 +758,220 @@ def profiling_phase(cfg, val, dev) -> dict:
             "post_device_latency_ms_b1": latency,
             "post_wrapper_host_us_b1": wrapper_us,
             "nan_passes_unchecked": unchecked, "checking_raised": raised}
+
+
+def sha256_of(directory: str) -> str:
+    """One sha256 over the bytes of a directory's files in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, name), "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+def write_file_sets(d: str) -> dict:
+    """Phase 9's dataset trees under ``d``: the 16 held-out protocol images
+    (seed 10 000, two persons) as MPII PNGs, MPII JPEGs and COCO PNGs, each
+    with the same list as its train and validation annotations; and an
+    MPII JPEG tree of 64 training images (seed 0) with the held-out 16 as
+    its validation split. Returns each tree's root."""
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.data.synthetic import (SyntheticPoseDataset,
+                                              heldout_dataset)
+    from ppn_tpu_torch.testing import write_coco_set, write_mpii_set
+
+    mpii, coco = get_config("mpii_r18_384"), get_config("coco_r18_384")
+    held = heldout_dataset(mpii, num_persons=2)
+    roots = {k: os.path.join(d, k) for k in
+             ("mpii_png", "mpii_jpg", "coco_png", "mpii_train_jpg")}
+    for ext in ("png", "jpg"):
+        write_mpii_set(mpii, roots[f"mpii_{ext}"],
+                       {"train": (held, 16, 0), "valid": (held, 16, 0)}, ext)
+    write_coco_set(roots["coco_png"],
+                   heldout_dataset(coco, num_persons=2), 16)
+    train = SyntheticPoseDataset(mpii, size=FILE_TRAIN_IMAGES, seed=0,
+                                 cache=True, num_persons=2)
+    write_mpii_set(mpii, roots["mpii_train_jpg"], {
+        "train": (train, FILE_TRAIN_IMAGES, 0),
+        "valid": (held, 16, 10_000)}, "jpg")
+    return roots
+
+
+def file_input_phase(model, card: str) -> dict:
+    """Phase 9: the evaluate, train and video CLIs on files on the card.
+    ``model`` is the MPII snapshot's eval model, for the first video
+    frame's plain pipeline."""
+    import ast
+    import re
+
+    import PIL
+    from PIL import features
+
+    from ppn_tpu_torch.apps import evaluate, train, video
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.data.coco import make_coco_datasets
+    from ppn_tpu_torch.eval.runner import evaluate_oks
+    from ppn_tpu_torch.inference import Predictor
+    from ppn_tpu_torch.ops import cuda_post, cuda_warp
+    from ppn_tpu_torch.ops.image import resize_bilinear
+    from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
+
+    out = {}
+    d = tempfile.mkdtemp(prefix="files_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        roots = write_file_sets(d)
+        origin = {"pil": PIL.__version__,
+                  "libjpeg_turbo": features.version("libjpeg_turbo"),
+                  "mpii_jpg": sha256_of(os.path.join(roots["mpii_jpg"],
+                                                     "images")),
+                  "mpii_png": sha256_of(os.path.join(roots["mpii_png"],
+                                                     "images"))}
+        out["here"] = origin
+        out["same_as_reference"] = {k: v == FILE_SET_ORIGIN[k]
+                                    for k, v in origin.items()}
+        log(f"[files] sets written in {time.perf_counter() - t0:.1f} s; "
+            f"here PIL {origin['pil']}, libjpeg-turbo "
+            f"{origin['libjpeg_turbo']}, sha256 of the 16 JPEGs "
+            f"{origin['mpii_jpg']}, of the 16 PNGs {origin['mpii_png']}; "
+            f"where the pins were taken PIL {FILE_SET_ORIGIN['pil']}, "
+            f"libjpeg-turbo {FILE_SET_ORIGIN['libjpeg_turbo']}, "
+            f"{FILE_SET_ORIGIN['mpii_jpg']}, {FILE_SET_ORIGIN['mpii_png']}; "
+            f"equal: {out['same_as_reference']}")
+
+        # 1-3: the evaluate CLI on each set
+        for label, (name, snap, data, root, metric, (det, nms), pin, key,
+                    count, tol) in FILE_PINS.items():
+            cuda_post.LAUNCHES = 0
+            t0 = time.perf_counter()
+            summary, _ = quiet_call(evaluate.main, [
+                "--config", name, "--data", data, "--data-root", roots[root],
+                "--ckpt-dir", snap, "--metric", metric, "--max-images", "16",
+                "--batch-size", "8", "--detection-thresh", str(det),
+                "--nms-thresh", str(nms)])
+            wall = time.perf_counter() - t0
+            launches = cuda_post.LAUNCHES
+            value = summary["pckh/mean" if metric == "pckh" else "oks/AP"]
+            out[label] = dict(summary, launches=launches, pinned=pin,
+                              cli_s=wall)
+            log(f"[files] evaluate CLI --data {data} on {label}: {metric} "
+                f"{value} (pinned {pin} ± {tol}), {summary[key]:.0f} "
+                f"{key.split('/')[1]}; ppn_post_kernel launches {launches}; "
+                f"{wall:.2f} s with the snapshot's load | {card}")
+            if (abs(value - pin) >= tol or summary[key] != count
+                    or launches != 2):
+                raise AssertionError(f"evaluation on files {label}: "
+                                     f"{summary}, {launches} launches")
+
+        # the COCO files' wall time per image, cold and warm, and decoding
+        ccfg = get_config("coco_r18_384")
+        ccfg = dataclasses.replace(ccfg, model=dataclasses.replace(
+            ccfg.model, detection_thresh=0.02, nms_thresh=0.6))
+        _, cval = make_coco_datasets(ccfg, roots["coco_png"])
+        cpred = Predictor.from_npz(ccfg, COCO_SNAPSHOT)
+        in_predict = []
+
+        def timed_predict(images):
+            t0 = time.perf_counter()
+            people = cpred.predict(images)
+            in_predict.append(time.perf_counter() - t0)
+            return people
+
+        passes = []
+        for _ in range(2):              # cold, then warm
+            in_predict.clear()
+            t0 = time.perf_counter()
+            ap = evaluate_oks(ccfg, timed_predict, cval, max_images=16,
+                              batch_size=8)["oks/AP"]
+            passes.append((time.perf_counter() - t0, sum(in_predict)))
+        t0 = time.perf_counter()
+        for i in range(16):
+            cval[i]
+        decode_s = time.perf_counter() - t0
+        out["coco_png"]["ap_unrounded"] = ap
+        out["coco_timing"] = {
+            "cold_ms_per_image": 1e3 * passes[0][0] / 16,
+            "cold_predict_ms_per_image": 1e3 * passes[0][1] / 16,
+            "warm_ms_per_image": 1e3 * passes[1][0] / 16,
+            "warm_predict_ms_per_image": 1e3 * passes[1][1] / 16,
+            "decode_ms_per_image": 1e3 * decode_s / 16}
+        log("[files] COCO PNG files, B=8, ms per evaluated image: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in out["coco_timing"].items())
+            + f" (decode: the 16 samples read alone); OKS AP unrounded "
+            f"{ap:.6f} | {card}")
+        del cpred
+
+        # 4: training on files
+        ck = os.path.join(d, "ckpt")
+        cuda_post.LAUNCHES = cuda_warp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, printed = quiet_call(train.main, [
+            "--config", "mpii_r18_384", "--data", "mpii", "--data-root",
+            roots["mpii_train_jpg"], "--init-npz", SNAPSHOT, "--batch-size",
+            "32", "--steps", str(FILE_TRAIN_STEPS), "--no-resume",
+            "--ckpt-dir", ck, "--log-dir", ck, "--set", "train.log_every=1"])
+        wall = time.perf_counter() - t0
+        warp, post = cuda_warp.LAUNCHES, cuda_post.LAUNCHES
+        with open(os.path.join(ck, "train_metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        losses = [r["loss_total"] for r in logged if "loss_total" in r]
+        step_ms = [1e3 * 32 / r["images_per_sec"] for r in logged
+                   if "images_per_sec" in r]
+        # the printed dict's values may be numpy scalars: np.float64(0.97)
+        evals = [ast.literal_eval(re.sub(r"np\.\w+\(", "(",
+                                         line[len("eval: "):]))
+                 for line in printed.splitlines() if line.startswith("eval:")]
+        cached = f"device cache: {FILE_TRAIN_IMAGES} samples" in printed
+        out["train"] = {
+            "device_cache": cached, "losses": losses, "warp_launches": warp,
+            "post_launches": post, "eval": evals[0] if evals else None,
+            "step_ms_median": statistics.median(step_ms), "cli_s": wall}
+        log(f"[files] train CLI --data mpii on {FILE_TRAIN_IMAGES} JPEGs, "
+            f"B=32, {FILE_TRAIN_STEPS} steps from the snapshot: device cache"
+            f" {cached}; loss_total {[round(v, 4) for v in losses]}; "
+            f"ppn_warp_kernel launches {warp}; eval {out['train']['eval']} "
+            f"from {post} ppn_post_kernel launches; median step "
+            f"{out['train']['step_ms_median']:.3f} ms (host clock between "
+            f"the trainer's per-step logs; {wall:.1f} s with decoding and "
+            f"set-up) | {card}")
+        if (not cached or len(losses) != FILE_TRAIN_STEPS
+                or not all(math.isfinite(v) for v in losses)
+                or warp != FILE_TRAIN_STEPS or post != 2 or len(evals) != 1
+                or not math.isfinite(evals[0]["pckh/mean"])):
+            raise AssertionError(f"training on files: {out['train']}")
+
+        # 5: video from a directory of JPEGs
+        frames_dir = os.path.join(roots["mpii_jpg"], "images")
+        vcfg = get_config("mpii_r18_384")    # the video app's thresholds
+        frame0 = next(video.jpeg_frames(frames_dir, 1, vcfg.model.insize))
+        got = video.make_video_pipeline(vcfg, model)(frame0)
+        with torch.no_grad():
+            img = resize_bilinear(torch.from_numpy(frame0).to(
+                next(model.parameters()).device).float() / 255.0,
+                vcfg.model.insize)
+            want = postprocess_batch_plain(vcfg.model, model(img[None]))
+        want = type(want)(*(t[0] for t in want))
+        equal, ulp, _ = compare(got, want)
+        cuda_post.LAUNCHES = 0
+        summary, _ = quiet_call(video.main, [
+            "--config", "mpii_r18_384", "--ckpt-dir", SNAPSHOT, "--source",
+            frames_dir, "--frames", str(FILE_VIDEO_FRAMES), "--json"])
+        summary["launches"] = cuda_post.LAUNCHES
+        out["video"] = dict(summary, first_frame_decisions_equal=equal,
+                            first_frame_max_ulp=ulp)
+        log(f"[files] video CLI --source <16 JPEGs>, {FILE_VIDEO_FRAMES} "
+            f"frames: {json.dumps(summary)} (launches include the warm-up "
+            f"frame); first frame against the plain pipeline: "
+            f"decisions_equal={equal} max_ulp={ulp} persons "
+            f"{int(want.valid.sum())} | {card}")
+        if (not equal or ulp > ULP_LIMIT
+                or summary["launches"] != summary["frames"] + 1):
+            raise AssertionError(f"video from a directory: {out['video']}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -1040,7 +1298,14 @@ def main() -> int:
                 raise AssertionError(f"evaluate CLI ({label}) printed {got},"
                                      f" the library {want}")
 
-    # ---- 9. B=1 latency -----------------------------------------------------
+    # ---- 9. real-data input: the CLIs on MPII and COCO files --------------
+    files = file_input_phase(pred.model, card)
+    log(f"[files] phase 8 on the synthetic images in memory, for "
+        f"comparison: coco {evaluation['coco']['ms_per_image']:.3f} ms per "
+        f"image warm, {evaluation['coco']['first_ms_per_image']:.3f} ms cold "
+        f"| {card}")
+
+    # ---- 10. B=1 latency ----------------------------------------------------
     one = images[0]
     latency = {}
     for label, p_ in (("plain", pred), ("tta", tpred)):
@@ -1073,7 +1338,7 @@ def main() -> int:
         "kernel's as a CUDA-graph replay; the wrapper's host µs): "
         + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" | {card}")
 
-    # ---- 10. server: micro-batched requests, verified bitwise ---------------
+    # ---- 11. server: micro-batched requests, verified bitwise ---------------
     from ppn_tpu_torch.apps import serve, video
 
     requests, max_batch = 64, 32
@@ -1100,7 +1365,7 @@ def main() -> int:
         raise AssertionError(f"server self-test failed: rc {rc}, "
                              f"{serve_launches} launches, {server}")
 
-    # ---- 11. video: 720p frames, on-device resize ---------------------------
+    # ---- 12. video: 720p frames, on-device resize ---------------------------
     vcfg = get_config("mpii_r18_384")    # the video app's thresholds
     frame0 = next(video.synthetic_frames(1, fps=0))
     got = video.make_video_pipeline(vcfg, pred.model)(frame0)
@@ -1131,7 +1396,7 @@ def main() -> int:
                                  " and the warm-up")
     del pred, tpred, fm1
 
-    # ---- 12. one train step on the card against the CPU ---------------------
+    # ---- 13. one train step on the card against the CPU ---------------------
     tcfg = dataclasses.replace(tiny, train=dataclasses.replace(
         tiny.train, dtype="float32", lr_schedule="constant",
         warmup_steps=0, learning_rate=0.05, ema_decay=0.9))
@@ -1150,7 +1415,7 @@ def main() -> int:
     if max(rel.values()) > 1e-4:
         raise AssertionError(f"card and CPU train steps disagree: {rel}")
 
-    # ---- 13. training path: fine-tune at full width, resume, evaluate -------
+    # ---- 14. training path: fine-tune at full width, resume, evaluate -------
     ckpt_dir = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(
         ROOT, "build"))
     try:
@@ -1199,7 +1464,7 @@ def main() -> int:
         if not math.isfinite(summary["pckh/mean"]):
             raise AssertionError("non-finite PCKh")
 
-        # ---- 14. training times ---------------------------------------------
+        # ---- 15. training times ---------------------------------------------
         state = trainer.state
         step_ms = []
         for _ in range(20):
@@ -1227,7 +1492,7 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    # ---- 15. overfit 8 fixed images from a fresh init -----------------------
+    # ---- 16. overfit 8 fixed images from a fresh init -----------------------
     ocfg = dataclasses.replace(mpii, train=dataclasses.replace(
         mpii.train, lr_schedule="constant", warmup_steps=0,
         learning_rate=mpii.train.learning_rate))
@@ -1243,7 +1508,7 @@ def main() -> int:
         raise AssertionError("the overfit check did not halve the loss")
     del ostate
 
-    # ---- 16. warp kernel times at the training path's shape -----------------
+    # ---- 17. warp kernel times at the training path's shape -----------------
     xw = cache.data["image"][:32].to(torch.float32).div(255.0).to(
         torch.bfloat16)
     mw = warp_matrices(mpii, 32, dev, seed=32)
@@ -1255,7 +1520,7 @@ def main() -> int:
         f"graph of 50 launches; back to back {w_eager_ms:.4f} ms), plain "
         f"{wp_ms:.3f} ms, bound {w_bound:.6f} ms (bytes) | {card}")
 
-    # ---- 17. data-parallel training, one rank over NCCL ---------------------
+    # ---- 18. data-parallel training, one rank over NCCL ---------------------
     dp1 = dp_one_rank(cfg, train_ds, val, dev)
     ref, nccl = dp1["no_group"], dp1["nccl"]
     dp1_equal = {
@@ -1286,7 +1551,7 @@ def main() -> int:
                   "pckh": nccl["pckh"]["pckh/mean"]}
     del dp1, ref, nccl
 
-    # ---- 18. data-parallel training, two ranks on the card over gloo -------
+    # ---- 19. data-parallel training, two ranks on the card over gloo -------
     f32 = constant_lr(cfg, dtype="float32", batch_size=8)
     bf16 = constant_lr(cfg)
     rng = np.random.default_rng(18)
@@ -1344,7 +1609,7 @@ def main() -> int:
         f"(spawn and both ranks {spawn_s:.1f} s) | {card}")
     del one, ranks, cases
 
-    # ---- 19. export: the pipeline through torch.export, against Predictor --
+    # ---- 20. export: the pipeline through torch.export, against Predictor --
     exp = export_phase(cfg, val, dev)
     log(f"[export] B=8 on the card: {exp['bytes']} bytes, export "
         f"{exp['export_s']:.1f} s, reload {exp['load_s']:.1f} s; on the "
@@ -1359,7 +1624,7 @@ def main() -> int:
     if not exp["valid_equal"] or exp["max_ulp"] > ULP_LIMIT:
         raise AssertionError(f"exported pipeline disagrees: {exp}")
 
-    # ---- 20. --pretrained: a run-time torchvision state dict ----------------
+    # ---- 21. --pretrained: a run-time torchvision state dict ----------------
     pre = pretrained_phase()
     log(f"[pretrained] apps/train.main --pretrained: backbone equal to the "
         f"file's {pre['tensors']} tensors before step 1 "
@@ -1369,7 +1634,7 @@ def main() -> int:
             or not all(math.isfinite(v) for v in pre["losses"])):
         raise AssertionError(f"--pretrained: {pre}")
 
-    # ---- 21. profiling and debug --------------------------------------------
+    # ---- 22. profiling and debug --------------------------------------------
     prof = profiling_phase(cfg, val, dev)
     prof["post_graph_ms_b1"] = times[1][0]
     log(f"[profile] trace of one B=8 predict: {prof['kernels_in_trace']} "
@@ -1384,7 +1649,7 @@ def main() -> int:
             or not prof["nan_passes_unchecked"]):
         raise AssertionError(f"profiling/debug: {prof}")
 
-    # ---- 22. report ---------------------------------------------------------
+    # ---- 23. report ---------------------------------------------------------
     k_ms, p_ms, bound, whole, eager_ms, call_us = times[B]
     k1_ms, p1_ms, bound1, whole1, eager1_ms, call1_us = times[1]
     log(json.dumps({"serving_slice": {
@@ -1394,6 +1659,11 @@ def main() -> int:
         "b1_latency": latency, "b1_split_ms": split, "server": server,
         "video": videos}}))
     log(json.dumps({"evaluation_slice": evaluation}))
+    file_step = files["train"]["step_ms_median"]
+    log(f"[files] train step on files, median {file_step:.3f} ms (host "
+        f"clock, phase 9) beside the synthetic step's {step_med:.3f} ms "
+        f"(CUDA events, phase 15) | {card}")
+    log(json.dumps({"file_input_slice": files}))
     log(json.dumps({"ninth_slice": {
         "data_parallel_one_rank": dp1_report,
         "data_parallel_two_ranks": dp2, "export": exp, "pretrained": pre,
@@ -1426,6 +1696,9 @@ def main() -> int:
             v["launches"] for v in evaluation.values()),
         "launches_mesh_evaluate": dp1_report["post_launches_evaluate"],
         "launches_exported_pipeline": exp["post_launches_exported"],
+        "launches_file_input": sum(
+            files[k]["launches"] for k in FILE_PINS) + files["train"][
+            "post_launches"] + files["video"]["launches"],
     }, {
         "name": "ppn_warp_kernel", "route": "cuda",
         "source": "ppn_tpu_torch/csrc/warp.cu",
@@ -1443,6 +1716,7 @@ def main() -> int:
         "launches_data_parallel_one_rank": dp1_report["warp_launches"],
         "launches_per_rank_two_ranks": [
             dp2[f"rank{r}"]["launches"] for r in (0, 1)],
+        "launches_file_training": files["train"]["warp_launches"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

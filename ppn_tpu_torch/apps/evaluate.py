@@ -13,8 +13,14 @@ JSON on stdout.
         --num-persons 2 --max-images 16 --batch-size 8 \
         --detection-thresh 0.02 --nms-thresh 0.6
 
-``--data mpii|coco`` (the real-data loaders) is not ported and raises,
-naming its ROADMAP.md item.
+``--data mpii|coco`` scores the validation split of a dataset tree under
+``--data-root`` (``apps/train.make_datasets``: ``data/mpii.py`` or
+``data/coco.py``, every image decoded through PIL); a tree without one
+exits with a message:
+
+    python -m ppn_tpu_torch.apps.evaluate --config mpii_r18_384 \
+        --data mpii --data-root /data/mpii \
+        --ckpt-dir artifacts/mpii_hero_r5_ema_f16.npz --batch-size 8
 """
 
 from __future__ import annotations
@@ -83,6 +89,8 @@ def main(argv=None):
         train_size = 1  # only the val split is used; keep train-gen trivial
 
     _, val = make_datasets(cfg, _A)
+    if val is None:
+        raise SystemExit("no validation split available")
     predictor = Predictor.from_checkpoint(cfg, args.ckpt_dir,
                                           flip_tta=args.flip_tta,
                                           device=args.device)

@@ -16,10 +16,20 @@ group (``parallel.multihost.initialize``: NCCL on cards, gloo with
 global batch of ``--batch-size`` rows over the mesh ``train.mesh_shape``;
 rank 0 writes the checkpoints and logs. A launcher's world that cannot be
 joined raises. ``--ini`` applies a reference-style config.ini over
-``--config``; the other flags, and ``--set`` last, apply over that. Not
-ported yet, and refused with the ROADMAP.md item that brings them:
-``--data mpii|coco`` (the real-data loaders) and ``--steps-per-call > 1``
-(the K-step device loop).
+``--config``; the other flags, and ``--set`` last, apply over that.
+
+``--data mpii|coco`` trains on a dataset tree under ``--data-root`` (else
+``data.root``): the MPII JSON conversion (``data/mpii.py``) or COCO's
+``person_keypoints_*.json`` (``data/coco.py``), every image decoded through
+PIL (``data/imageio.py``). A set that fits is held on the card
+(``DeviceCache``), a larger one streams through ``data/pipeline.py``;
+``eval:`` is printed only when the tree has a validation split:
+
+    python -m ppn_tpu_torch.apps.train --config mpii_r18_384 --data mpii \
+        --data-root /data/mpii --init-npz artifacts/mpii_hero_r5_ema_f16.npz
+
+Not ported yet, and refused with the ROADMAP.md item that brings it:
+``--steps-per-call > 1`` (the K-step device loop).
 """
 
 from __future__ import annotations
@@ -94,23 +104,32 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def make_datasets(cfg, args):
-    """Returns (train_dataset, val_dataset)."""
-    if args.data != "synthetic":
-        raise NotImplementedError(
-            f"--data {args.data}: the MPII/COCO loaders are not ported "
-            "(ROADMAP.md queue 1 item 9)")
-    from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+    """Returns (train_dataset, val_dataset); val is None for a file tree
+    without a validation split."""
+    if args.data == "synthetic":
+        from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
 
-    n = args.overfit or args.train_size
-    np_ = args.num_persons
-    if np_ == 0:       # 0 = random 1..max_persons crowding
-        np_ = None
-    train = SyntheticPoseDataset(cfg, size=n, seed=cfg.train.seed,
-                                 cache=True, num_persons=np_)
-    val = (train if args.overfit
-           else SyntheticPoseDataset(cfg, size=128, seed=10_000,
-                                     cache=True, num_persons=np_))
-    return train, val
+        n = args.overfit or args.train_size
+        np_ = args.num_persons
+        if np_ == 0:       # 0 = random 1..max_persons crowding
+            np_ = None
+        train = SyntheticPoseDataset(cfg, size=n, seed=cfg.train.seed,
+                                     cache=True, num_persons=np_)
+        val = (train if args.overfit
+               else SyntheticPoseDataset(cfg, size=128, seed=10_000,
+                                         cache=True, num_persons=np_))
+        return train, val
+    if args.data == "mpii":
+        from ppn_tpu_torch.data.mpii import make_mpii_datasets
+
+        return make_mpii_datasets(cfg, args.data_root or cfg.data.root,
+                                  overfit=args.overfit)
+    if args.data == "coco":
+        from ppn_tpu_torch.data.coco import make_coco_datasets
+
+        return make_coco_datasets(cfg, args.data_root or cfg.data.root,
+                                  overfit=args.overfit)
+    raise ValueError(args.data)
 
 
 def main(argv=None):

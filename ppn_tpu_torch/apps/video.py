@@ -8,13 +8,17 @@ poses on the host. Sources:
 
 * ``--source synthetic`` — generated 720p frames, pre-rendered and paced at
   30 fps, so the latency path runs offline;
+* ``--source <directory>`` — its ``.jpg``/``.jpeg`` files in name order,
+  cycled to ``--frames``, each decoded and resized to the model input
+  through PIL (``data/imageio.load_resized``) in the capture thread. The
+  JAX package decodes them in its native libjpeg pool, which is not ported
+  (ROADMAP.md queue 1 item 13);
 * ``--source cam`` / ``--source <video file>`` — OpenCV capture (cv2,
   imported only for it).
 
-A directory of JPEGs (the JAX package decodes those through its native C++
-pool) is not ported: ROADMAP.md queue 1 item 13. ``--pre-resize`` and
-``--out`` need PIL, imported only for them. Reports frames, fps and the
-p50/p90 of the latency from frame in hand to poses on the host.
+``--pre-resize`` and ``--out`` need PIL, imported only for them. Reports
+frames, fps and the p50/p90 of the latency from frame in hand to poses on
+the host.
 
     python -m ppn_tpu_torch.apps.video --config mpii_r18_384 \
         --ckpt-dir artifacts/mpii_hero_r5_ema_f16.npz --source synthetic \
@@ -119,6 +123,23 @@ def synthetic_frames(n: int, size=(720, 1280), seed: int = 0,
         yield frames[i % uniq]
 
 
+def jpeg_frames(dirpath: str, n: int, insize):
+    """``n`` uint8 frames at ``insize`` from the sorted ``.jpg``/``.jpeg``
+    files of a directory, cycled, in order: each decoded and resized through
+    PIL, as the JAX package's ``jpeg_frames`` does without its native pool.
+    Raises ``RuntimeError`` when the directory holds none."""
+    from ppn_tpu_torch.data.imageio import load_resized
+
+    files = sorted(
+        os.path.join(dirpath, f) for f in os.listdir(dirpath)
+        if f.lower().endswith((".jpg", ".jpeg")))
+    if not files:
+        raise RuntimeError(f"no .jpg files in {dirpath!r}")
+    for i in range(n):
+        img, _, _ = load_resized(files[i % len(files)], insize)
+        yield (img * 255.0 + 0.5).astype(np.uint8)
+
+
 def capture_frames(source: str):
     """RGB frames from a camera (``cam``) or a video file, through cv2."""
     import cv2
@@ -141,7 +162,8 @@ def main(argv=None):
                    help="reference-style config.ini applied over --config")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--source", default="synthetic",
-                   help="'synthetic', 'cam', or a video file path")
+                   help="'synthetic', 'cam', a directory of JPEGs, or a "
+                        "video file path")
     p.add_argument("--frames", type=int, default=64)
     p.add_argument("--out", default=None,
                    help="directory for annotated frames (PNG)")
@@ -161,10 +183,6 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
-    if args.source not in ("synthetic", "cam") and os.path.isdir(args.source):
-        raise NotImplementedError(
-            "--source <directory of JPEGs> (the native decode pool) is not "
-            "ported (ROADMAP.md queue 1 item 13)")
 
     from ppn_tpu_torch.configs import resolve_config
     from ppn_tpu_torch.inference import Predictor, fetch_async, wait_host
@@ -182,6 +200,8 @@ def main(argv=None):
 
     if args.source == "synthetic":
         frames = synthetic_frames(args.frames)
+    elif os.path.isdir(args.source):
+        frames = jpeg_frames(args.source, args.frames, cfg.model.insize)
     else:
         frames = capture_frames(args.source)
     if args.pre_resize:

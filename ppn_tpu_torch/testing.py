@@ -15,9 +15,16 @@ Made with numpy from a seed, so every side gets the same bytes:
 
 ``nan_window_case`` is the hand-made case of one NaN limb logit beside the
 winner its window would otherwise have.
+
+``write_mpii_set`` and ``write_coco_set`` write dataset trees in the MPII
+JSON and COCO ``person_keypoints`` layouts from synthetic samples, so the
+file loaders run on known GT with no dataset at hand.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
@@ -134,3 +141,85 @@ def max_ulp(a: np.ndarray, b: np.ndarray) -> int:
     ai = np.where(na, np.float32(0), a).view(np.int32).astype(np.int64)
     bi = np.where(nb, np.float32(0), b).view(np.int32).astype(np.int64)
     return int(np.abs(ai - bi).max(initial=0))
+
+
+def _save_image(pixels: np.ndarray, path: str) -> None:
+    """uint8 (H, W, 3) → an image file; a ``.jpg`` at quality 95, every
+    other option at PIL's default."""
+    from PIL import Image
+
+    opts = {"quality": 95} if path.endswith(".jpg") else {}
+    Image.fromarray(pixels).save(path, **opts)
+
+
+def _dump(obj, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def write_mpii_set(cfg, root: str, splits: dict, ext: str = "png") -> None:
+    """An MPII tree under ``root``: for each ``split: (dataset, n, first)``
+    the first ``n`` samples of a uint8 synthetic dataset as
+    ``images/{first + i:05d}.{ext}`` and ``annot/{split}.json``, one record
+    per valid person in slot order. The joints go back to MPII's order
+    (invisible ones keep their coordinates); ``center`` is the box center
+    and ``scale`` its longer side / 200 (MPII's square of side 200·scale);
+    the head box is a square whose 0.6 · diagonal is 0.2 · the box
+    diagonal, ``eval/runner.synthetic_headsizes``."""
+    from ppn_tpu_torch.data.mpii import _remap_indices
+
+    perm = _remap_indices(cfg)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for split, (dataset, n, first) in splits.items():
+        records = []
+        for i in range(n):
+            s = dataset[i]
+            name = f"{first + i:05d}.{ext}"
+            _save_image(s["image"], os.path.join(root, "images", name))
+            for p in np.flatnonzero(s["valid"]):
+                joints = np.zeros((16, 2), np.float32)
+                joints_vis = np.zeros(16, np.int64)
+                joints[perm] = s["keypoints"][p]
+                joints_vis[perm] = s["visible"][p]
+                cx, cy, w, h = s["bboxes"][p].tolist()
+                d = 0.2 * float(np.hypot(w, h)) / 0.6 / np.sqrt(2.0)
+                records.append({
+                    "image": name, "joints": joints.tolist(),
+                    "joints_vis": joints_vis.tolist(), "center": [cx, cy],
+                    "scale": max(w, h) / 200, "headbox": [0.0, 0.0, d, d]})
+        _dump(records, os.path.join(root, "annot", f"{split}.json"))
+
+
+def write_coco_set(root: str, dataset, n: int, ext: str = "png") -> None:
+    """A COCO tree under ``root``: the first ``n`` samples of a uint8
+    synthetic dataset as ``{i:012d}.{ext}`` in both ``train2017/`` and
+    ``val2017/``, and one identical ``annotations/person_keypoints_*.json``
+    for each, one annotation per valid person (``[x, y, v]`` keypoints with
+    v = 2 where visible and 0, at (0, 0), where not; ``bbox`` the corner
+    form of the box, ``area`` its w·h)."""
+    images, anns = [], []
+    for i in range(n):
+        s = dataset[i]
+        name = f"{i:012d}.{ext}"
+        for d in ("train2017", "val2017"):
+            os.makedirs(os.path.join(root, d), exist_ok=True)
+            _save_image(s["image"], os.path.join(root, d, name))
+        H, W = s["image"].shape[:2]
+        images.append({"id": i, "file_name": name, "width": W, "height": H})
+        for p in np.flatnonzero(s["valid"]):
+            kps = []
+            for (x, y), v in zip(s["keypoints"][p].tolist(),
+                                 s["visible"][p].tolist()):
+                kps += [x, y, 2] if v else [0.0, 0.0, 0]
+            cx, cy, w, h = s["bboxes"][p].tolist()
+            anns.append({
+                "id": len(anns) + 1, "image_id": i, "category_id": 1,
+                "keypoints": kps, "num_keypoints": int(s["visible"][p].sum()),
+                "bbox": [cx - w / 2, cy - h / 2, w, h], "area": w * h,
+                "iscrowd": 0})
+    blob = {"images": images, "annotations": anns,
+            "categories": [{"id": 1, "name": "person"}]}
+    for split in ("train2017", "val2017"):
+        _dump(blob, os.path.join(root, "annotations",
+                                 f"person_keypoints_{split}.json"))

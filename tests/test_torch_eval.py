@@ -317,10 +317,14 @@ def test_evaluate_cli_matches_jax_on_the_coco_snapshot(metric, capsys):
     assert want["oks/num_gt" if metric == "oks" else "pckh/num_joints"] > 0
 
 
-def test_evaluate_cli_refuses_the_real_data_loaders():
+def test_evaluate_cli_refuses_the_real_data_loaders(tmp_path):
+    """The loaders are ported (tests/test_torch_real_data_cli.py runs them):
+    a tree without annotation files is refused with the JAX package's
+    FileNotFoundError, no longer with NotImplementedError."""
     from ppn_tpu_torch.apps import evaluate
 
-    for data in ("mpii", "coco"):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    for data, match in (("mpii", "no MPII annotation json"),
+                        ("coco", "no COCO person_keypoints")):
+        with pytest.raises(FileNotFoundError, match=match):
             evaluate.main(["--device", "cpu", "--config", "tiny_test",
-                           "--data", data])
+                           "--data", data, "--data-root", str(tmp_path)])

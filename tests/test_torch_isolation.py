@@ -169,3 +169,33 @@ def test_ninth_slice_is_scanned_and_defaults_to_cuda(no_cuda, tmp_path):
         with profiling.trace(str(tmp_path)):
             pass
     assert make_mesh(device="cpu").device == torch.device("cpu")
+
+
+def test_file_input_slice_is_scanned_and_defaults_to_cuda(no_cuda, tmp_path,
+                                                          capsys):
+    """The file loaders are among the files scanned for imports; the train
+    and evaluate CLIs on a file tree and the video CLI on a directory of
+    JPEGs run on CUDA unless asked otherwise."""
+    scanned = {os.path.relpath(f, ROOT) for f in _port_files()}
+    for name in ("data/imageio.py", "data/mpii.py", "data/coco.py"):
+        assert os.path.join("ppn_tpu_torch", name) in scanned
+    from ppn_tpu_torch.apps import evaluate, train, video
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from ppn_tpu_torch.testing import write_mpii_set
+
+    cfg = get_config("tiny_test")
+    src = SyntheticPoseDataset(cfg, size=2, seed=0, cache=True)
+    root = str(tmp_path / "mpii")
+    write_mpii_set(cfg, root, {"train": (src, 2, 0), "valid": (src, 2, 0)},
+                   ext="jpg")
+    data = ["--config", "tiny_test", "--data", "mpii", "--data-root", root]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(data + ["--steps", "1", "--batch-size", "2",
+                           "--ckpt-dir", str(tmp_path / "ck")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate.main(data)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        video.main(["--config", "tiny_test", "--frames", "2", "--source",
+                    os.path.join(root, "images")])
+    assert capsys.readouterr().out == ""

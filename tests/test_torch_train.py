@@ -437,6 +437,8 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
     ["--set", "train.mesh_shape=(2,)"]])
 def test_train_cli_refuses_unported_options(flags, tmp_path):
     """Each option not ported yet raises, naming its ROADMAP.md item.
+    ``--data mpii|coco`` is ported: one step on a two-image file tree
+    writes its checkpoint.
     ``--ini`` is ported: the INI's step count reaches the trainer.
     ``--pretrained`` is ported: the state before the first step holds the
     file's backbone. A mesh over more ranks than the world has (one
@@ -445,6 +447,22 @@ def test_train_cli_refuses_unported_options(flags, tmp_path):
 
     argv = ["--device", "cpu", "--config", "tiny_test", "--ckpt-dir",
             str(tmp_path)]
+    if flags[0] == "--data":
+        from ppn_tpu_torch.configs import get_config
+        from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+        from ppn_tpu_torch.testing import write_coco_set, write_mpii_set
+
+        cfg = get_config("tiny_test")
+        src = SyntheticPoseDataset(cfg, size=2, seed=0, cache=True)
+        root = str(tmp_path / "data")
+        if flags[1] == "mpii":
+            write_mpii_set(cfg, root, {"train": (src, 2, 0)})
+        else:
+            write_coco_set(root, src, 2)
+        train.main(argv + flags + ["--data-root", root, "--steps", "1",
+                                   "--batch-size", "2"])
+        assert sorted(os.listdir(tmp_path)) == ["ckpt_00000001.pt", "data"]
+        return
     if flags[0] == "--ini":
         ini = tmp_path / flags[1]
         ini.write_text("[training]\nnum_steps = 1\n")

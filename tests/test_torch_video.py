@@ -126,9 +126,22 @@ def test_main_on_synthetic_frames(tmp_path, capsys):
 
 
 def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        video.main(["--config", "tiny_test", "--source", str(tmp_path),
+    """A directory source is ported (PIL decode): one without JPEGs is
+    refused as the JAX package refuses it, one with JPEGs streams."""
+    from PIL import Image
+
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    with pytest.raises(RuntimeError, match="no .jpg files"):
+        video.main(["--config", "tiny_test", "--source", str(frames),
                     "--device", "cpu"])
+    rng = np.random.default_rng(1)
+    for i in range(2):
+        Image.fromarray(rng.integers(0, 255, (48, 80, 3), np.uint8)).save(
+            frames / f"{i}.jpg")
+    summary = video.main(["--config", "tiny_test", "--source", str(frames),
+                          "--frames", "3", "--device", "cpu"])
+    assert 1 <= summary["frames"] <= 3
     # --ini is ported: the stream runs on the INI's threshold
     from test_torch_predict_cli import configs_loaded
 
