@@ -9,7 +9,11 @@ Phases, each raising on failure:
   2. build   — compile both kernels from the checkout's sources with nvcc
                for sm_90a, one nvcc per source, in parallel:
                ``ppn_post_kernel`` (ppn_tpu_torch/csrc/post.cu) and
-               ``ppn_warp_kernel`` (ppn_tpu_torch/csrc/warp.cu);
+               ``ppn_warp_kernel`` (ppn_tpu_torch/csrc/warp.cu); beside
+               them, g++ builds the native JPEG pool
+               (ppn_tpu_torch/native/loader.cc) against the libjpeg-turbo
+               in the imported Pillow's ``pillow.libs`` (a missing one
+               fails the run: there is no PIL fallback);
   3. post kernel — against its plain PyTorch version on the card:
                tiny_test, mpii_r18_384 at B=1, 8, 128 and coco_r18_384_crowded
                at B=128 on the ``normal``, ``sparse``, ``ties`` and ``nan``
@@ -62,7 +66,8 @@ Phases, each raising on failure:
                0.976190 ± 3e-3 (PNG) and 0.965608 ± 3e-3 (JPEG) over exactly
                378 joints, OKS AP 0.945134 ± 5e-3 over exactly 32 GT — the
                JAX package's values on the same files on its CPU — two post
-               launches each; PIL's and libjpeg-turbo's versions and the
+               launches each (the JPEGs decode natively, the default);
+               PIL's and libjpeg-turbo's versions and the
                sha256 of the JPEGs and PNGs beside the reference's; wall ms
                per evaluated image on the COCO files, cold and warm, and
                the share of decoding; ``apps/train.main --data mpii`` on 64
@@ -71,10 +76,10 @@ Phases, each raising on failure:
                used, finite losses, one warp launch per step, ``eval:``
                PCKh from two post launches, the median step time;
                ``apps/video.main --source <directory of JPEGs>``, 32
-               frames: one post launch per frame (the warm-up frame
-               besides), the first frame's People through the kernel equal
-               to the plain pipeline's in every decision field, fps and
-               p50/p90;
+               frames through the native pool: one post launch per frame
+               (the warm-up frame besides), the first frame's People
+               through the kernel equal to the plain pipeline's in every
+               decision field, fps and p50/p90;
 10. B=1 latency — ``predict_single`` on uint8 384² images, p50 and p90 of
                200 calls after warm-up, without and with TTA, and the split
                of one call: upload, forward, post (kernel device time and
@@ -142,15 +147,53 @@ Phases, each raising on failure:
                wrapper at B=1 beside phase 6's CUDA-graph time; a forward on
                a NaN image raises under ``debug.checking()``, naming a
                module, and passes outside it;
-23. report  — the serving, evaluation, file-input and ninth slices'
-               numbers, the kernels line, then the device line last.
+23. native decode — PIL's version, its libjpeg-turbo and the
+               ``pillow.libs`` library the pool links; the 16 protocol
+               images written as MPII JPEGs enlarged 2.5× to 960² (quality
+               95; the files' sha256 beside this script's reference, and
+               whether the decoded arrays hash the same — a report, since
+               another ``-march=native`` host may round otherwise);
+               ``apps/evaluate.main --data mpii`` at the default
+               ``native_jpeg=True``: PCKh 0.976190 ± 3e-3 over exactly 378
+               joints (the JAX package's value on the same files on its
+               CPU), two post launches; ``decode_resize`` ms per image
+               beside PIL's decode and resize of the same files, and the
+               pool's img/s at 4 and 8 workers; ``apps/video.main`` on
+               that directory (32 frames through the pool): one post
+               launch per frame and the warm-up, the first frame's
+               decisions equal to the plain pipeline's, fps;
+24. K-step loop — mpii_r18_384, B=32, bf16, augmentation on, constant lr,
+               from the snapshot: one ``make_multi_train_step`` call of K=4
+               on a cached index block against 4 ``train_step`` calls on
+               the same block, the whole state and the mean terms bitwise,
+               exactly 4 warp launches in the call; ms per step of K-step
+               calls and of per-step calls, in turns;
+25. sharded cache — two spawned ranks share cuda:0 in a gloo world: a
+               ``DeviceCache(mesh=)`` of the 256 cached images (128 rows
+               per rank), its gathered slices bitwise the replicated
+               cache's for four global blocks, bytes per rank; a K=2
+               ``Trainer`` over it from the snapshot, cuDNN's
+               deterministic algorithms on: f32 B=8 one block, its state
+               bitwise the same two steps taken one ``train_step`` at a
+               time on the replicated cache's slices (and whether two such
+               replays with cuDNN's default choice agree, reported),
+               and against one process on the same blocks the mean loss
+               terms within rel 1e-5 (the state's distance printed: two
+               f32 steps, where phase 19 holds one at 1e-5·max|p|); bf16
+               B=32 two blocks, loss_total within rel 2e-3 (phase 19's
+               tolerances); K warp launches per call and rank;
+26. report  — the serving, evaluation, file-input, ninth and eleventh
+               slices' numbers, the kernels line, then the device line
+               last.
 
 Launch counts are set to 0 just before each path (phase 5 for inference,
 7 for TTA, 8 for each evaluation and CLI run, 9 for each CLI run on files,
 10 for B=1, 11 for the server, 12 for video, 14 for training, 18 for each
 one-rank run and its evaluation, 19 in each rank and in the one process
-before its steps, 20 before the exported call) and read just after it;
-comparison and timing launches fall outside those windows.
+before its steps, 20 before the exported call, 23 before the evaluate and
+video CLIs, 24 before the K-step call, 25 in each rank and in the one
+process before its Trainer runs) and read just after it; comparison and
+timing launches fall outside those windows.
 """
 
 from __future__ import annotations
@@ -208,7 +251,8 @@ OKS_TOLERANCE = 5e-3   # about one match flipped at one of the ten OKS
 # The JAX package's values on its CPU (train/steps.make_forward through
 # eval/runner.evaluate_pckh / evaluate_oks) on the 16 held-out protocol
 # images written as files by ppn_tpu_torch/testing.py, read back through
-# ppn_tpu/data/{mpii,coco}.py with native_jpeg=False, at B=8:
+# ppn_tpu/data/{mpii,coco}.py at native_jpeg=True (the JPEGs are 384², so
+# the native decode and PIL's give the same PCKh there), at B=8:
 # label -> (config, snapshot, --data, file set, metric, det/nms, value,
 #           the count key, its value, tolerance)
 FILE_PINS = {
@@ -228,6 +272,23 @@ FILE_SET_ORIGIN = {
     "mpii_png": ("92622285a2ea5d128164f5362e85e063"
                  "5d8c299a88b17a2ce0b1dc69e207fcb4")}
 FILE_TRAIN_IMAGES, FILE_TRAIN_STEPS, FILE_VIDEO_FRAMES = 64, 10, 32
+# Phase 23: the protocol images enlarged 2.5× (384² → 960²) as MPII JPEGs
+# (testing.write_mpii_set(..., "jpg", scale=2.5)), and the JAX package's
+# PCKh on them on its CPU (train/steps.make_forward through
+# eval/runner.evaluate_pckh, ppn_tpu/data/mpii.py at native_jpeg=True, det
+# 0.02, nms 0.45, B=8) over its joints; where it was taken: PIL, its
+# libjpeg-turbo, the files' sha256 and that of the 16 arrays
+# native/loader.decode_resize gives at 384² (in file order)
+NATIVE_SCALE, NATIVE_PIN = 2.5, (0.976190, 378)
+NATIVE_SET_ORIGIN = {
+    "pil": "12.1.0", "libjpeg_turbo": "3.1.3",
+    "files": ("2ba771ad180d4089a08fb4621a584d97"
+              "6e567f8dc0b256a017e2d3e122a30024"),
+    "decoded": ("e5ea81679d252475a43856e208b6cdd4"
+                "34be58f8ec08a71e725f926e54dc720e")}
+POOL_JOBS = 128          # phase 23: images through the pool per timing
+K_STEPS = 4              # phase 24: steps per K-step call
+SHARDED_BLOCKS = 4       # phase 25: global blocks gathered and compared
 # (angle, scale, tx, flip): the warp cases of tests/test_pallas_warp.py
 WARP_CASES = [(0.0, 1.0, 0.0, False), (0.3, 1.1, 12.0, False),
               (-0.5, 0.8, -7.0, False), (0.7, 1.25, 3.0, True),
@@ -974,6 +1035,424 @@ def file_input_phase(model, card: str) -> dict:
     return out
 
 
+def native_phase(model, card: str) -> dict:
+    """Phase 23: the native JPEG pool on enlarged protocol JPEGs: the
+    evaluate CLI at its default decoding, decode times beside PIL's, the
+    pool's rate, and the video CLI on the directory. ``model`` is the MPII
+    snapshot's eval model, for the first video frame's plain pipeline."""
+    import hashlib
+
+    import PIL
+    from PIL import features
+
+    from ppn_tpu_torch.apps import evaluate, video
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.data.imageio import load_resized
+    from ppn_tpu_torch.data.synthetic import heldout_dataset
+    from ppn_tpu_torch.native import loader as nl
+    from ppn_tpu_torch.ops import cuda_post
+    from ppn_tpu_torch.ops.image import resize_bilinear
+    from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
+    from ppn_tpu_torch.testing import write_mpii_set
+
+    cfg = get_config("mpii_r18_384")
+    hw = cfg.model.insize
+    out = {"pil": PIL.__version__,
+           "libjpeg_turbo": features.version("libjpeg_turbo"),
+           "pillow_libjpeg": str(nl.libjpeg())}
+    d = tempfile.mkdtemp(prefix="native_", dir=os.path.join(ROOT, "build"))
+    try:
+        held = heldout_dataset(cfg, num_persons=2)
+        write_mpii_set(cfg, d, {"train": (held, 16, 0),
+                                "valid": (held, 16, 0)}, "jpg",
+                       scale=NATIVE_SCALE)
+        images = os.path.join(d, "images")
+        files = [os.path.join(images, n) for n in sorted(os.listdir(images))]
+        blobs = []
+        for path in files:
+            with open(path, "rb") as fh:
+                blobs.append(fh.read())
+        decoded = hashlib.sha256()
+        for b in blobs:
+            decoded.update(nl.decode_resize(b, hw).tobytes())
+        out.update(files=sha256_of(images), decoded=decoded.hexdigest(),
+                   dims=nl.jpeg_dims(blobs[0]))
+        same = {k: out[k] == NATIVE_SET_ORIGIN[k] for k in NATIVE_SET_ORIGIN}
+        out["same_as_reference"] = same
+        log(f"[native] PIL {out['pil']}, libjpeg-turbo "
+            f"{out['libjpeg_turbo']}, the pool links {out['pillow_libjpeg']}"
+            f"; 16 JPEGs at {out['dims'][0]}x{out['dims'][1]} sha256 "
+            f"{out['files']}, decoded at 384² sha256 {out['decoded']}; "
+            f"where the pin was taken: PIL {NATIVE_SET_ORIGIN['pil']}, "
+            f"libjpeg-turbo {NATIVE_SET_ORIGIN['libjpeg_turbo']}, "
+            f"{NATIVE_SET_ORIGIN['files']}, {NATIVE_SET_ORIGIN['decoded']}; "
+            f"equal (a report, not a check): {same}")
+
+        # the evaluate CLI at its default decoding (native for JPEGs)
+        pin, joints = NATIVE_PIN
+        cuda_post.LAUNCHES = 0
+        summary, _ = quiet_call(evaluate.main, [
+            "--config", "mpii_r18_384", "--data", "mpii", "--data-root", d,
+            "--ckpt-dir", SNAPSHOT, "--max-images", "16", "--batch-size",
+            "8", "--detection-thresh", "0.02", "--nms-thresh", "0.45"])
+        launches = cuda_post.LAUNCHES
+        out["evaluate"] = dict(summary, launches=launches, pinned=pin)
+        log(f"[native] evaluate CLI --data mpii on the 960² JPEGs, native "
+            f"decoding: PCKh {summary['pckh/mean']} (pinned {pin} ± 3e-3), "
+            f"{summary['pckh/num_joints']:.0f} joints; ppn_post_kernel "
+            f"launches {launches} | {card}")
+        if (abs(summary["pckh/mean"] - pin) >= 3e-3
+                or summary["pckh/num_joints"] != joints or launches != 2):
+            raise AssertionError(f"native-decoded evaluation: {out}")
+
+        # decode times: one-shot native and PIL on the same files, the pool
+        def per_image_ms(fn, items, passes=3):
+            times = []
+            for _ in range(passes):
+                t0 = time.perf_counter()
+                for item in items:
+                    fn(item)
+                times.append(1e3 * (time.perf_counter() - t0) / len(items))
+            return statistics.median(times)
+
+        out["decode_ms"] = {
+            "native": per_image_ms(lambda b: nl.decode_resize(b, hw), blobs),
+            "pil": per_image_ms(lambda f: load_resized(f, hw,
+                                                       native_jpeg=False),
+                                files)}
+        rates = {}
+        for workers in (4, 8):
+            pool = nl.NativeJpegLoader(hw, num_workers=workers)
+            try:
+                t0 = time.perf_counter()
+                for i in range(POOL_JOBS):
+                    pool.submit(i, blobs[i % len(blobs)])
+                got = [pool.get()[1] is not None for _ in range(POOL_JOBS)]
+                dt = time.perf_counter() - t0
+            finally:
+                pool.close()
+            if not all(got):
+                raise AssertionError("the pool failed a protocol JPEG")
+            rates[workers] = POOL_JOBS / dt
+        out["pool_img_per_s"] = rates
+        log(f"[native] 960² JPEG -> 384² float32 RGB, ms per image (median "
+            f"of 3 passes over the 16 files, one host thread): "
+            f"decode_resize {out['decode_ms']['native']:.3f}, PIL decode and "
+            f"resize {out['decode_ms']['pil']:.3f}; pool, {POOL_JOBS} images:"
+            f" {rates[4]:.1f} img/s at 4 workers, {rates[8]:.1f} at 8 | "
+            f"{card} | {os.cpu_count()} host cores")
+
+        # video from the directory through the pool
+        vcfg = get_config("mpii_r18_384")
+        frame0 = next(video.jpeg_frames(images, 1, vcfg.model.insize))
+        got = video.make_video_pipeline(vcfg, model)(frame0)
+        with torch.no_grad():
+            img = resize_bilinear(torch.from_numpy(frame0).to(
+                next(model.parameters()).device).float() / 255.0,
+                vcfg.model.insize)
+            want = postprocess_batch_plain(vcfg.model, model(img[None]))
+        want = type(want)(*(t[0] for t in want))
+        equal, ulp, _ = compare(got, want)
+        cuda_post.LAUNCHES = 0
+        summary, _ = quiet_call(video.main, [
+            "--config", "mpii_r18_384", "--ckpt-dir", SNAPSHOT, "--source",
+            images, "--frames", str(FILE_VIDEO_FRAMES), "--json"])
+        summary["launches"] = cuda_post.LAUNCHES
+        out["video"] = dict(summary, first_frame_decisions_equal=equal,
+                            first_frame_max_ulp=ulp)
+        log(f"[native] video CLI --source <16 JPEGs at 960²> through the "
+            f"pool, {FILE_VIDEO_FRAMES} frames: {json.dumps(summary)} "
+            f"(launches include the warm-up frame); first frame against the "
+            f"plain pipeline: decisions_equal={equal} max_ulp={ulp} | {card}")
+        if (not equal or ulp > ULP_LIMIT
+                or summary["launches"] != summary["frames"] + 1):
+            raise AssertionError(f"video through the pool: {out['video']}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def same_state(a, b) -> bool:
+    """Whether two train states are bitwise equal: parameters, BatchNorm
+    statistics, momentum traces, EMA, step and generator."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return (a.step == b.step
+            and all(torch.equal(v, sb[k]) for k, v in sa.items())
+            and all(torch.equal(v, b.trace[k]) for k, v in a.trace.items())
+            and (a.ema is None) == (b.ema is None)
+            and all(torch.equal(v, b.ema[k]) for k, v in (a.ema or {}).items())
+            and torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+def k_step_phase(cfg, cache, dev, card: str) -> dict:
+    """Phase 24: one K-step call against K ``train_step`` calls on the same
+    block, bitwise, its warp launches, then ms per step of both, in
+    turns."""
+    from ppn_tpu_torch.ops import cuda_warp
+    from ppn_tpu_torch.train import steps as st
+    from ppn_tpu_torch.utils.params_io import load_npz_into_train_state
+
+    kcfg = constant_lr(cfg, steps_per_call=K_STEPS)
+    B = kcfg.train.batch_size
+    a, b = (load_npz_into_train_state(
+        kcfg, SNAPSHOT, st.create_train_state(kcfg, device=dev))
+        for _ in range(2))
+    rng = np.random.default_rng(24)
+
+    def block():
+        return np.stack([rng.choice(TRAIN_IMAGES, B, replace=False)
+                         for _ in range(K_STEPS)]).astype(np.int32)
+
+    idx = block()
+    multi = st.make_multi_train_step(kcfg, augment=True,
+                                     steps_per_call=K_STEPS)
+    per = [st.train_step(kcfg, b, cache.batch(i), augment=True) for i in idx]
+    torch.cuda.synchronize()
+    cuda_warp.LAUNCHES = 0
+    got = multi(a, cache, idx)
+    torch.cuda.synchronize()
+    launches = cuda_warp.LAUNCHES
+    mean = {k: torch.stack([t[k] for t in per]).mean(0) for k in per[0]}
+    terms_equal = got.keys() == mean.keys() and all(
+        torch.equal(v, mean[k]) for k, v in got.items())
+    state_equal = same_state(a, b)
+    k_ms, s_ms = [], []
+    for _ in range(4):                  # in turns: K-step, per-step
+        for label, ms in (("k", k_ms), ("s", s_ms)):
+            i = block()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if label == "k":
+                multi(a, cache, i)
+            else:
+                for row in i:
+                    st.train_step(kcfg, b, cache.batch(row), augment=True)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0) / K_STEPS)
+    out = {"state_equal": state_equal, "terms_equal": terms_equal,
+           "warp_launches_per_call": launches,
+           "loss_total": float(got["loss_total"]),
+           "k_step_ms_per_step": statistics.median(k_ms),
+           "per_step_ms_per_step": statistics.median(s_ms),
+           "k_step_ms_all": k_ms, "per_step_ms_all": s_ms}
+    log(f"[kstep] K={K_STEPS} B={B} bf16 with augmentation from the "
+        f"snapshot: one make_multi_train_step call against {K_STEPS} "
+        f"train_step calls on the same block, state bitwise {state_equal}, "
+        f"mean terms bitwise {terms_equal} (loss_total "
+        f"{out['loss_total']:.6f}); ppn_warp_kernel launches in the call "
+        f"{launches}; ms per step (host clock around synchronized blocks of "
+        f"{K_STEPS} steps, median of 4 in turns): K-step "
+        f"{out['k_step_ms_per_step']:.3f}, per-step "
+        f"{out['per_step_ms_per_step']:.3f} | {card}")
+    if not state_equal or not terms_equal or launches != K_STEPS:
+        raise AssertionError(f"K-step loop: {out}")
+    return out
+
+
+def sharded_rank(rank: int, world: int, port: int, outdir: str,
+                 cases: dict, device: str) -> None:
+    """Phase 25's ranks: each joins a gloo world on the loopback address,
+    computes on ``device`` (the card's cuda:0) with TF32 off, builds the
+    256 cached images sharded over the world and replicated, compares their
+    gathered slices, then runs each case's K=2 ``Trainer`` over the sharded
+    cache; writes the results to ``<outdir>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from ppn_tpu_torch.parallel import make_mesh, shard_batch
+    from ppn_tpu_torch.parallel.multihost import initialize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.startswith("cuda"):
+        torch.cuda.set_device(device)
+    initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        mesh = make_mesh(device=device)
+        from ppn_tpu_torch.configs import get_config
+        from ppn_tpu_torch.data.device_cache import DeviceCache
+        from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+
+        ds = SyntheticPoseDataset(get_config("mpii_r18_384"),
+                                  size=TRAIN_IMAGES, seed=0)
+        sharded = DeviceCache(ds, device=mesh.device, mesh=mesh)
+        replicated = DeviceCache(ds, device=mesh.device)
+        rng = np.random.default_rng(25)
+        B = cases["bf16"][0].train.batch_size
+        equal = []
+        for _ in range(SHARDED_BLOCKS):
+            idx = rng.choice(TRAIN_IMAGES, B, replace=False)
+            got = sharded.batch(idx)
+            want = shard_batch(mesh, replicated.batch(idx))
+            equal.append(all(torch.equal(v, want[k])
+                             for k, v in got.items()))
+        out = {"gathers_equal": equal,
+               "nbytes": [sharded.nbytes(), replicated.nbytes()]}
+        # with cuDNN's default algorithm choice two replays of these f32
+        # steps part in the last bits on the H100 (PERF.md §6), so the
+        # Trainer runs and the replay they are held to bitwise take its
+        # deterministic algorithms; the default's replays are compared for
+        # the record
+        torch.backends.cudnn.deterministic = True
+        out.update(k_step_trainer_runs(cases, sharded, mesh, outdir))
+        replay = functools.partial(f32_replay, cases["f32"][0],
+                                   out["f32"]["blocks"], replicated, mesh)
+        out["f32"]["per_step_equal"] = same_tensors(out["f32"]["state"],
+                                                    replay())
+        torch.backends.cudnn.deterministic = False
+        out["f32"]["default_replays_equal"] = same_tensors(replay(),
+                                                           replay())
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def same_tensors(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(v, b[k])
+                                        for k, v in a.items())
+
+
+def f32_replay(cfg, blocks, cache, mesh) -> dict:
+    """Phase 25's f32 Trainer run again, one ``train_step`` at a time on
+    ``cache``'s slices of its index blocks, from the same start; the model
+    state after, on the host."""
+    from ppn_tpu_torch.parallel import replicate, shard_batch
+    from ppn_tpu_torch.train import steps as st
+    from ppn_tpu_torch.utils.params_io import load_npz_into_train_state
+
+    state = load_npz_into_train_state(
+        cfg, SNAPSHOT, st.create_train_state(cfg, device=mesh.device))
+    replicate(mesh, state)
+    for block in blocks:
+        for row in block:
+            st.train_step(cfg, state, shard_batch(mesh, cache.batch(row)),
+                          augment=True, mesh=mesh)
+    return {k: v.cpu() for k, v in state.model.state_dict().items()}
+
+
+def k_step_trainer_runs(cases: dict, cache, mesh, outdir: str) -> dict:
+    """For each case (label → (config, steps)): a ``Trainer`` from the
+    snapshot over ``cache`` with augmentation, its K-step loop for the
+    steps; the index blocks it drew, the logged (mean) loss terms of each
+    block, the state after, the warp launches and the ms per step on the
+    host clock."""
+    from ppn_tpu_torch.ops import cuda_warp
+    from ppn_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for label, (cfg, steps) in cases.items():
+        d = os.path.join(outdir, f"{label}_{mesh.rank()}")
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, checkpoint_dir=d, resume=False, log_every=1,
+            checkpoint_every=0, eval_every=0))
+        trainer, _ = quiet_call(functools.partial(
+            Trainer, cfg, iter([]), logdir=d, augment=True,
+            init_npz=SNAPSHOT, device=mesh.device, mesh=mesh,
+            device_cache=cache))
+        k = cfg.train.steps_per_call
+        draw = trainer._index_blocks(cfg.train.batch_size, k, cfg.train.seed)
+        blocks = [next(draw).tolist() for _ in range(steps // k)]
+        torch.cuda.synchronize()
+        cuda_warp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        quiet_call(trainer.run, steps)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        terms = []
+        if mesh.rank() == 0:
+            with open(os.path.join(d, "train_metrics.jsonl")) as fh:
+                terms = [{k: v for k, v in json.loads(line).items()
+                          if k.startswith("loss_")} for line in fh]
+        out[label] = {"terms": terms, "launches": cuda_warp.LAUNCHES,
+                      "blocks": blocks,
+                      "ms_per_step": ms, "state": {
+                          k: v.cpu() for k, v in
+                          trainer.state.model.state_dict().items()}}
+        trainer.close()
+    return out
+
+
+def sharded_phase(cfg, cache, card: str) -> dict:
+    """Phase 25: two gloo ranks on the one card with the capacity-sharded
+    cache and the K=2 Trainer, against one process on the replicated
+    cache."""
+    from ppn_tpu_torch.parallel import make_mesh
+
+    cases = {"f32": (constant_lr(cfg, dtype="float32", batch_size=8,
+                                 steps_per_call=2), 2),
+             "bf16": (constant_lr(cfg, steps_per_call=2), 4)}
+    d = tempfile.mkdtemp(prefix="sharded_", dir=os.path.join(ROOT, "build"))
+    try:
+        torch.backends.cudnn.deterministic = True    # as the ranks run
+        one = k_step_trainer_runs(cases, cache, make_mesh(device=cache.device),
+                                  os.path.join(d, "one_process"))
+        torch.backends.cudnn.deterministic = False
+        t0 = time.perf_counter()
+        dev = cache.device
+        device = f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu"
+        torch.multiprocessing.spawn(
+            sharded_rank, args=(2, free_port(), d, cases, device),
+            nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=True)
+                 for r in (0, 1)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out = {"spawn_s": spawn_s, "one_process_ms_per_step": {
+        k: v["ms_per_step"] for k, v in one.items()}}
+    got0 = ranks[0]
+    f32_rel = max(abs(g[k] - w[k]) / abs(w[k])
+                  for g, w in zip(got0["f32"]["terms"], one["f32"]["terms"])
+                  for k in w)
+    bf16_rel = max(abs(g["loss_total"] - w["loss_total"]) / abs(w["loss_total"])
+                   for g, w in zip(got0["bf16"]["terms"],
+                                   one["bf16"]["terms"]))
+    for r, res in enumerate(ranks):
+        state_rel, worst = max_rel_state(res["f32"]["state"],
+                                         one["f32"]["state"])
+        out[f"rank{r}"] = {
+            "gathers_equal": res["gathers_equal"],
+            "cache_bytes": res["nbytes"][0],
+            "replicated_bytes": res["nbytes"][1],
+            "f32_state_rel": state_rel, "f32_worst_tensor": worst,
+            "launches": [res["f32"]["launches"], res["bf16"]["launches"]],
+            "ms_per_step": [res["f32"]["ms_per_step"],
+                            res["bf16"]["ms_per_step"]]}
+        out[f"rank{r}"].update(
+            f32_per_step_equal=res["f32"]["per_step_equal"],
+            default_cudnn_replays_equal=res["f32"]["default_replays_equal"])
+        log(f"[sharded] rank {r} of 2 (gloo, both on cuda:0): gathered "
+            f"slices of {SHARDED_BLOCKS} blocks bitwise the replicated "
+            f"cache's {res['gathers_equal']}; cache bytes "
+            f"{res['nbytes'][0]} (replicated {res['nbytes'][1]}); K=2 "
+            f"Trainer from the snapshot, f32 B=8 one block (cuDNN "
+            f"deterministic): state bitwise the same steps one train_step at "
+            f"a time on the replicated cache {res['f32']['per_step_equal']} "
+            f"(two such replays with cuDNN's default algorithms bitwise "
+            f"equal: {res['f32']['default_replays_equal']}), against one "
+            f"process "
+            f"worst {state_rel:.3g}·max|p| ({worst}; two f32 steps, not "
+            f"held: phase 19 holds one at 1e-5); ppn_warp_kernel launches "
+            f"{res['f32']['launches']} + {res['bf16']['launches']}; ms per "
+            f"step f32 {res['f32']['ms_per_step']:.3f}, bf16 "
+            f"{res['bf16']['ms_per_step']:.3f} | {card}")
+        if (not all(res["gathers_equal"])
+                or not res["f32"]["per_step_equal"]
+                or 2 * res["nbytes"][0] != res["nbytes"][1]
+                or res["f32"]["launches"] != 2
+                or res["bf16"]["launches"] != 4):
+            raise AssertionError(f"sharded cache rank {r}: {out}")
+    out.update(f32_terms_rel=f32_rel, bf16_loss_rel=bf16_rel)
+    log(f"[sharded] rank 0's logged block loss terms against one process: "
+        f"f32 worst rel {f32_rel:.3g} (limit 1e-5), bf16 loss_total worst rel "
+        f"{bf16_rel:.3g} over {len(one['bf16']['terms'])} blocks (limit "
+        f"2e-3); one process ms per step {out['one_process_ms_per_step']}; "
+        f"spawn and both ranks {spawn_s:.1f} s | {card}")
+    if (f32_rel > 1e-5 or bf16_rel > 2e-3
+            or len(got0["bf16"]["terms"]) != 2 or len(got0["f32"]["terms"]) != 1):
+        raise AssertionError(f"sharded K=2 Trainer against one process: {out}")
+    return out
+
+
 def main() -> int:
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1005,11 +1484,20 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- 2. build -----------------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ppn_tpu_torch.native import loader as native_loader
+
     t0 = time.perf_counter()
-    reports = cuda_build.build([cuda_post.SOURCE, cuda_warp.SOURCE],
-                               force=True)
+    with ThreadPoolExecutor(1) as pool:   # g++ beside the nvcc processes
+        native_lib = pool.submit(native_loader.load)
+        reports = cuda_build.build([cuda_post.SOURCE, cuda_warp.SOURCE],
+                                   force=True)
+        native_lib.result()
     log(f"[build] ppn_post_kernel and ppn_warp_kernel built in "
-        f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
+        f"{time.perf_counter() - t0:.2f} s (parallel nvcc), the native JPEG "
+        f"pool beside them ({native_loader.LIB.name} linking "
+        f"{native_loader.libjpeg()})")
     for source, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -1649,7 +2137,16 @@ def main() -> int:
             or not prof["nan_passes_unchecked"]):
         raise AssertionError(f"profiling/debug: {prof}")
 
-    # ---- 23. report ---------------------------------------------------------
+    # ---- 23. native decode: enlarged JPEGs, evaluate and video CLIs --------
+    native = native_phase(Predictor.from_npz(cfg, SNAPSHOT).model, card)
+
+    # ---- 24. the K-step loop: bitwise against per-step calls ---------------
+    kstep = k_step_phase(cfg, cache, dev, card)
+
+    # ---- 25. the capacity-sharded cache on two ranks, K=2 Trainer ----------
+    sharded = sharded_phase(cfg, cache, card)
+
+    # ---- 26. report ---------------------------------------------------------
     k_ms, p_ms, bound, whole, eager_ms, call_us = times[B]
     k1_ms, p1_ms, bound1, whole1, eager1_ms, call1_us = times[1]
     log(json.dumps({"serving_slice": {
@@ -1668,6 +2165,8 @@ def main() -> int:
         "data_parallel_one_rank": dp1_report,
         "data_parallel_two_ranks": dp2, "export": exp, "pretrained": pre,
         "profiling": prof}}))
+    log(json.dumps({"eleventh_slice": {
+        "native_decode": native, "k_step": kstep, "sharded_cache": sharded}}))
     log(card)   # the nvidia-smi name,power.limit line, as it prints it
     log(json.dumps({"kernels": [{
         "name": "ppn_post_kernel", "route": "cuda",
@@ -1699,6 +2198,8 @@ def main() -> int:
         "launches_file_input": sum(
             files[k]["launches"] for k in FILE_PINS) + files["train"][
             "post_launches"] + files["video"]["launches"],
+        "launches_native_files": (native["evaluate"]["launches"]
+                                  + native["video"]["launches"]),
     }, {
         "name": "ppn_warp_kernel", "route": "cuda",
         "source": "ppn_tpu_torch/csrc/warp.cu",
@@ -1717,6 +2218,9 @@ def main() -> int:
         "launches_per_rank_two_ranks": [
             dp2[f"rank{r}"]["launches"] for r in (0, 1)],
         "launches_file_training": files["train"]["warp_launches"],
+        "launches_per_k_step_call": kstep["warp_launches_per_call"],
+        "launches_sharded_k_step_per_rank": [
+            sharded[f"rank{r}"]["launches"] for r in (0, 1)],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

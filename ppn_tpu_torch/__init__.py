@@ -6,7 +6,8 @@ convs → one fused post-process CUDA kernel → fixed-shape ``People``),
 training (on-device augmentation through an affine-warp CUDA kernel →
 target encoding → bf16 forward/backward → SGD + EMA, checkpoints) and
 evaluation (PCKh and COCO OKS AP over batches through the post-process
-kernel, the evaluate CLI). Entry points run on ``cuda`` unless the caller
+kernel, the evaluate CLI); JPEG files decode on the host in a native
+libjpeg pool (``native/``). Entry points run on ``cuda`` unless the caller
 asks for ``device="cpu"``.
 """
 

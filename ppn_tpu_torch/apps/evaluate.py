@@ -15,8 +15,8 @@ JSON on stdout.
 
 ``--data mpii|coco`` scores the validation split of a dataset tree under
 ``--data-root`` (``apps/train.make_datasets``: ``data/mpii.py`` or
-``data/coco.py``, every image decoded through PIL); a tree without one
-exits with a message:
+``data/coco.py``: JPEGs decoded natively, other files through PIL); a tree
+without one exits with a message:
 
     python -m ppn_tpu_torch.apps.evaluate --config mpii_r18_384 \
         --data mpii --data-root /data/mpii \

@@ -20,16 +20,18 @@ joined raises. ``--ini`` applies a reference-style config.ini over
 
 ``--data mpii|coco`` trains on a dataset tree under ``--data-root`` (else
 ``data.root``): the MPII JSON conversion (``data/mpii.py``) or COCO's
-``person_keypoints_*.json`` (``data/coco.py``), every image decoded through
-PIL (``data/imageio.py``). A set that fits is held on the card
-(``DeviceCache``), a larger one streams through ``data/pipeline.py``;
-``eval:`` is printed only when the tree has a validation split:
+``person_keypoints_*.json`` (``data/coco.py``), JPEGs decoded natively
+(``native/``) and other files through PIL (``data/imageio.py``). A set that
+fits is held on the card (``DeviceCache``, sharded over the data group), a
+larger one streams through ``data/pipeline.py``; ``eval:`` is printed only
+when the tree has a validation split:
 
     python -m ppn_tpu_torch.apps.train --config mpii_r18_384 --data mpii \
         --data-root /data/mpii --init-npz artifacts/mpii_hero_r5_ema_f16.npz
 
-Not ported yet, and refused with the ROADMAP.md item that brings it:
-``--steps-per-call > 1`` (the K-step device loop).
+``--steps-per-call K`` with the device cache runs K steps per call of
+``train/steps.make_multi_train_step`` over index blocks (the tail below K
+step by step).
 """
 
 from __future__ import annotations
@@ -91,7 +93,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "all other flags (e.g. --set data.rotate_deg=20); "
                         "repeatable")
     p.add_argument("--steps-per-call", type=int, default=None,
-                   help="SGD steps per dispatch; only 1 is ported")
+                   help="SGD steps per call of the K-step loop over the "
+                        "device cache (train/steps.make_multi_train_step)")
     p.add_argument("--device-cache", choices=["auto", "on", "off"],
                    default="auto",
                    help="hold the whole dataset in device memory and sample "
@@ -172,9 +175,8 @@ def main(argv=None):
     from ppn_tpu_torch.data.pipeline import infinite_batches
     from ppn_tpu_torch.parallel import make_mesh, shard_batch
     from ppn_tpu_torch.parallel.multihost import initialize, is_primary
-    from ppn_tpu_torch.train.trainer import Trainer, check_ported
+    from ppn_tpu_torch.train.trainer import Trainer
 
-    check_ported(cfg)
     device = resolve_device(args.device)
     if device.type == "cuda" and "LOCAL_RANK" in os.environ:
         if device.index is None:
@@ -196,7 +198,7 @@ def main(argv=None):
                             device=device, mesh=mesh)
         if is_primary():
             print(f"device cache: {len(train_ds)} samples, "
-                  f"{cache.nbytes() / 1e6:.0f} MB on {device}")
+                  f"{cache.nbytes() / 1e6:.0f} MB on {device} (per rank)")
         batches = cache.infinite_batches(cfg.train.batch_size,
                                          seed=cfg.train.seed)
     else:

@@ -9,10 +9,9 @@ poses on the host. Sources:
 * ``--source synthetic`` — generated 720p frames, pre-rendered and paced at
   30 fps, so the latency path runs offline;
 * ``--source <directory>`` — its ``.jpg``/``.jpeg`` files in name order,
-  cycled to ``--frames``, each decoded and resized to the model input
-  through PIL (``data/imageio.load_resized``) in the capture thread. The
-  JAX package decodes them in its native libjpeg pool, which is not ported
-  (ROADMAP.md queue 1 item 13);
+  cycled to ``--frames``, decoded and resized to the model input by the
+  native libjpeg pool (``native/loader.NativeJpegLoader``, four threads
+  off the GIL), in file order;
 * ``--source cam`` / ``--source <video file>`` — OpenCV capture (cv2,
   imported only for it).
 
@@ -125,19 +124,44 @@ def synthetic_frames(n: int, size=(720, 1280), seed: int = 0,
 
 def jpeg_frames(dirpath: str, n: int, insize):
     """``n`` uint8 frames at ``insize`` from the sorted ``.jpg``/``.jpeg``
-    files of a directory, cycled, in order: each decoded and resized through
-    PIL, as the JAX package's ``jpeg_frames`` does without its native pool.
-    Raises ``RuntimeError`` when the directory holds none."""
-    from ppn_tpu_torch.data.imageio import load_resized
+    files of a directory, cycled, through the native decode pool: submits
+    run a window of 8 ahead of consumption, completions (out of order, four
+    workers race) are buffered by id and yielded in file order, and a frame
+    that fails to decode is skipped. Raises ``RuntimeError`` when the
+    directory holds none, or when the pool cannot be built."""
+    from ppn_tpu_torch.native.loader import NativeJpegLoader
 
     files = sorted(
         os.path.join(dirpath, f) for f in os.listdir(dirpath)
         if f.lower().endswith((".jpg", ".jpeg")))
     if not files:
         raise RuntimeError(f"no .jpg files in {dirpath!r}")
-    for i in range(n):
-        img, _, _ = load_resized(files[i % len(files)], insize)
-        yield (img * 255.0 + 0.5).astype(np.uint8)
+    paths = [files[i % len(files)] for i in range(n)]
+
+    def submit(i):
+        with open(paths[i], "rb") as f:
+            loader.submit(i, f.read())
+
+    loader = NativeJpegLoader(insize, num_workers=4)
+    try:
+        window = min(8, n)
+        for i in range(window):
+            submit(i)
+        submitted, pending, next_id = window, {}, 0
+        for _ in range(n):
+            rid, img = loader.get()
+            pending[rid] = img
+            if submitted < n:
+                submit(submitted)
+                submitted += 1
+            while next_id in pending:
+                img = pending.pop(next_id)
+                next_id += 1
+                if img is None:
+                    continue  # corrupt frame: skip, keep streaming
+                yield (img * 255.0 + 0.5).astype(np.uint8)
+    finally:
+        loader.close()
 
 
 def capture_frames(source: str):

@@ -226,8 +226,8 @@ class TrainConfig:
     # (parallel/mesh.make_mesh): -1 absorbs the world size.
     mesh_shape: Tuple[int, ...] = (-1,)
     mesh_axes: Tuple[str, ...] = ("data",)
-    # SGD steps per dispatch; only 1 is ported (the K-step loop is ROADMAP
-    # queue 1 item 9's remainder).
+    # SGD steps per call of the device-resident K-step loop
+    # (train/steps.make_multi_train_step; needs the trainer's DeviceCache).
     steps_per_call: int = 1
 
 

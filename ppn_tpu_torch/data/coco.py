@@ -3,7 +3,8 @@ parser of the official ``person_keypoints_*.json`` files (no pycocotools).
 
 COCO's keypoint order is ``configs.COCO_KEYPOINT_NAMES[1:]`` one to one, so
 nothing is remapped: annotations are grouped by image, the image is resized
-to the network input (``data/imageio.load_resized``, PIL) and the persons
+to the network input (``data/imageio.load_resized``: JPEGs natively, other
+files through PIL) and the persons
 are padded to the static ``max_persons`` slots. COCO has no head boxes; the
 PCKh-style ``headsizes`` are 0.6 · the nose↔ear span (OKS evaluation uses
 the instance area instead, ``eval/coco_eval.py``). The arithmetic is the
@@ -25,13 +26,13 @@ from ppn_tpu_torch.data.imageio import load_resized
 
 class COCOKeypointsDataset:
     """Skips ``iscrowd`` annotations and those with fewer than
-    ``min_keypoints`` labelled keypoints. ``native_jpeg=True`` (the
-    reference's native JPEG pool) raises in ``data/imageio.load_resized``
-    on the first sample."""
+    ``min_keypoints`` labelled keypoints. ``native_jpeg``: JPEGs through
+    the native decoder (the default, as in the reference), else through
+    PIL (``data/imageio.load_resized``)."""
 
     def __init__(self, cfg: Config, root: str, annotations: str,
                  image_dir: str, indices: Optional[List[int]] = None,
-                 min_keypoints: int = 1, native_jpeg: bool = False):
+                 min_keypoints: int = 1, native_jpeg: bool = True):
         self.cfg = cfg
         self.image_dir = os.path.join(root, image_dir)
         self.native_jpeg = native_jpeg

@@ -8,7 +8,8 @@ per annotated person):
      "headbox": [x0, y0, x1, y1]?}            # headbox optional
 
 Records are grouped by image into multi-person samples, resized on the host
-to the network input size (``data/imageio.load_resized``, PIL; augmentation
+to the network input size (``data/imageio.load_resized``: JPEGs natively,
+other files through PIL; augmentation
 runs on the device, ``ops/augment.py``), and emitted in the GT contract of
 ``ops/encode.py`` plus per-person ``headsizes`` for PCKh. The arithmetic is
 the reference's, in its order, so every field is bitwise the JAX package's
@@ -59,13 +60,13 @@ def load_annotations(path: str) -> List[dict]:
 class MPIIDataset:
     """Map-style multi-person MPII dataset in the framework GT contract.
 
-    ``native_jpeg`` is the reference's keyword: ``True`` (its native JPEG
-    pool) raises in ``data/imageio.load_resized`` on the first sample."""
+    ``native_jpeg``: JPEGs through the native decoder (the default, as
+    in the reference), else through PIL (``data/imageio.load_resized``)."""
 
     def __init__(self, cfg: Config, root: str, annotations: str,
                  image_dir: str = "images",
                  indices: Optional[List[int]] = None,
-                 native_jpeg: bool = False):
+                 native_jpeg: bool = True):
         self.cfg = cfg
         self.root = root
         self.image_dir = os.path.join(root, image_dir)

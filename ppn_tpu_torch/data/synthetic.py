@@ -2,9 +2,9 @@
 ``ppn_tpu/data/synthetic.py``).
 
 Pure numpy and deterministic per (seed, index): the same pixels and GT as
-the JAX package's generator, which the tests check. The JAX package's
-on-disk render cache (``materialize_collated``) is not carried over: it only
-shortens the set-up of large synthetic runs.
+the JAX package's generator, which the tests check. ``materialize_collated``
+memoizes the collated dataset on disk, as the JAX package does, under keys
+of its own.
 """
 
 from __future__ import annotations
@@ -15,6 +15,10 @@ from typing import Dict
 import numpy as np
 
 from ppn_tpu_torch.configs import Config, PPNConfig
+
+# Part of materialize_collated's key: bump whenever render() or
+# random_people() change their output.
+_RENDERER_VERSION = 1
 
 
 def random_people(
@@ -198,6 +202,55 @@ class SyntheticPoseDataset:
             self._cache[idx] = cached
             return dict(cached)
         return sample
+
+    def materialize_collated(self, image_uint8: bool = True
+                             ) -> Dict[str, np.ndarray]:
+        """The whole dataset collated, memoized on disk (``DeviceCache``'s
+        feed: rendering costs tens of ms a sample on one host core, a
+        repeat loads in seconds).
+
+        ``PPN_SYNTH_CACHE``: unset → ``ppn_synth_cache`` in the temporary
+        directory (``/tmp`` unless ``TMPDIR`` says otherwise); ``0`` →
+        no memo; anything else → that directory. An entry is keyed by the
+        renderer version, the model config, the person slots, size, seed,
+        crowding and ``image_uint8``, and by this package's name, so the
+        JAX package's entries (same config repr) are never read here. It is
+        written into a temporary directory, marked ``_complete`` and
+        renamed into place; a hit is loaded read-only through ``mmap``."""
+        import hashlib
+        import os
+        import shutil
+        import tempfile
+
+        from ppn_tpu_torch.data.pipeline import collate
+
+        root = os.environ.get("PPN_SYNTH_CACHE", os.path.join(
+            tempfile.gettempdir(), "ppn_synth_cache"))
+        if root == "0":
+            return collate([self[i] for i in range(self.size)],
+                           image_uint8=image_uint8)
+        key = hashlib.sha1(repr((
+            "ppn_tpu_torch", _RENDERER_VERSION, self.cfg.model,
+            self.cfg.data.max_persons, self.size, self.seed,
+            self.num_persons, image_uint8,
+        )).encode()).hexdigest()[:16]
+        path = os.path.join(root, key)
+        if os.path.exists(os.path.join(path, "_complete")):
+            return {f[:-4]: np.load(os.path.join(path, f), mmap_mode="r")
+                    for f in sorted(os.listdir(path)) if f.endswith(".npy")}
+        host = collate([self[i] for i in range(self.size)],
+                       image_uint8=image_uint8)
+        tmp = f"{path}.tmp-{os.getpid()}"
+        os.makedirs(tmp, exist_ok=True)
+        for k, v in host.items():
+            np.save(os.path.join(tmp, f"{k}.npy"), v)
+        with open(os.path.join(tmp, "_complete"), "w") as f:
+            f.write(repr((self.size, self.seed)))
+        try:
+            os.rename(tmp, path)  # atomic publish; a race's loser cleans up
+        except OSError:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return host
 
 
 def heldout_dataset(cfg: Config, num_persons=None) -> SyntheticPoseDataset:

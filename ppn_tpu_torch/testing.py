@@ -152,13 +152,26 @@ def _save_image(pixels: np.ndarray, path: str) -> None:
     Image.fromarray(pixels).save(path, **opts)
 
 
+def _enlarged(pixels: np.ndarray, scale: float) -> np.ndarray:
+    """uint8 (H, W, 3) enlarged by ``scale`` (PIL bilinear; as it is at
+    1)."""
+    if scale == 1.0:
+        return pixels
+    from PIL import Image
+
+    H, W = pixels.shape[:2]
+    size = (round(W * scale), round(H * scale))
+    return np.asarray(Image.fromarray(pixels).resize(size, Image.BILINEAR))
+
+
 def _dump(obj, path: str) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(obj, f)
 
 
-def write_mpii_set(cfg, root: str, splits: dict, ext: str = "png") -> None:
+def write_mpii_set(cfg, root: str, splits: dict, ext: str = "png",
+                   scale: float = 1.0) -> None:
     """An MPII tree under ``root``: for each ``split: (dataset, n, first)``
     the first ``n`` samples of a uint8 synthetic dataset as
     ``images/{first + i:05d}.{ext}`` and ``annot/{split}.json``, one record
@@ -166,7 +179,10 @@ def write_mpii_set(cfg, root: str, splits: dict, ext: str = "png") -> None:
     (invisible ones keep their coordinates); ``center`` is the box center
     and ``scale`` its longer side / 200 (MPII's square of side 200·scale);
     the head box is a square whose 0.6 · diagonal is 0.2 · the box
-    diagonal, ``eval/runner.synthetic_headsizes``."""
+    diagonal, ``eval/runner.synthetic_headsizes``. ``scale`` > 1 writes
+    each image enlarged by that factor (PIL bilinear) with every
+    coordinate and size scaled alike, so that a loader's resize to the
+    model input has work to do."""
     from ppn_tpu_torch.data.mpii import _remap_indices
 
     perm = _remap_indices(cfg)
@@ -176,13 +192,14 @@ def write_mpii_set(cfg, root: str, splits: dict, ext: str = "png") -> None:
         for i in range(n):
             s = dataset[i]
             name = f"{first + i:05d}.{ext}"
-            _save_image(s["image"], os.path.join(root, "images", name))
+            _save_image(_enlarged(s["image"], scale),
+                        os.path.join(root, "images", name))
             for p in np.flatnonzero(s["valid"]):
                 joints = np.zeros((16, 2), np.float32)
                 joints_vis = np.zeros(16, np.int64)
-                joints[perm] = s["keypoints"][p]
+                joints[perm] = s["keypoints"][p] * np.float32(scale)
                 joints_vis[perm] = s["visible"][p]
-                cx, cy, w, h = s["bboxes"][p].tolist()
+                cx, cy, w, h = (s["bboxes"][p] * np.float32(scale)).tolist()
                 d = 0.2 * float(np.hypot(w, h)) / 0.6 / np.sqrt(2.0)
                 records.append({
                     "image": name, "joints": joints.tolist(),

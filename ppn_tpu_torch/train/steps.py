@@ -10,8 +10,8 @@ follows optax's ``chain(add_decayed_weights(wd, mask), sgd(lr, 0.9))``
 term by term: ``g ← g + wd·p`` on parameters with ``ndim > 1`` only,
 ``trace ← g + 0.9·trace``, ``p ← p + (−lr)·trace``, with ``lr`` the
 schedule at the number of steps already taken (0 on the first step under
-warmup). The multi-step ``lax.scan`` loop (``make_multi_train_step``) is
-not ported.
+warmup). ``make_multi_train_step`` runs K such steps per call over
+batches gathered from a ``DeviceCache`` by a (K, B) index block.
 
 Data parallel (``mesh`` of more than one rank, ``parallel/mesh.py``): each
 rank augments and encodes its slice of the global batch, BatchNorm takes
@@ -246,6 +246,36 @@ def train_step(cfg: Config, state: TrainState, batch,
         sum(torch.sum(torch.square(g)) for g in grads.values()))
     sgd_update(cfg, state, grads)
     return terms
+
+
+def make_multi_train_step(cfg: Config, augment: bool = True,
+                          steps_per_call: int = 8, mesh=None):
+    """K = ``steps_per_call`` SGD steps per call over a device-resident
+    dataset (the JAX package's ``lax.scan`` loop, written eagerly).
+
+    Returns ``multi_step(state, cache, idx) -> mean_terms``: ``cache`` is a
+    ``data/device_cache.DeviceCache`` (under ``mesh``, sharded or not: its
+    ``batch`` gives this rank's slice), ``idx`` a (K, B) block of global
+    sample indices; the state advances K steps in place and the loss terms,
+    ``grad_norm`` included, come back averaged over the K steps. Each step
+    is one ``train_step`` on ``cache.batch(idx[k])``, the same kernels in
+    the same order, so K steps here are bitwise K ``train_step`` calls on
+    the same batches."""
+    k = int(steps_per_call)
+    if k < 1:
+        raise ValueError(f"steps_per_call {steps_per_call} must be >= 1")
+
+    def multi_step(state: TrainState, cache, idx) -> Dict[str, torch.Tensor]:
+        idx = np.asarray(idx)
+        if idx.ndim != 2 or len(idx) != k:
+            raise ValueError(f"an index block of shape {idx.shape}; "
+                             f"expected ({k}, batch)")
+        terms = [train_step(cfg, state, cache.batch(i), augment, mesh)
+                 for i in idx]
+        return {name: torch.stack([t[name] for t in terms]).mean(0)
+                for name in terms[0]}
+
+    return multi_step
 
 
 def eval_loss_step(cfg: Config, state: TrainState,

@@ -1,8 +1,9 @@
 """Trainer: the orchestration loop (port of ``ppn_tpu/train/trainer.py``)
-— per-step train steps over a data-parallel mesh (``cfg.train.mesh_shape``
-over the ranks of the ``torch.distributed`` world; one process needs no
-process group), JSONL metrics and checkpoints written by the primary rank,
-periodic PCKh eval on the primary."""
+— train steps over a data-parallel mesh (``cfg.train.mesh_shape`` over the
+ranks of the ``torch.distributed`` world; one process needs no process
+group), K at a time over a ``DeviceCache`` when ``steps_per_call`` > 1,
+JSONL metrics and checkpoints written by the primary rank, periodic PCKh
+eval on the primary."""
 
 from __future__ import annotations
 
@@ -21,14 +22,6 @@ from ppn_tpu_torch.parallel.multihost import is_primary
 from ppn_tpu_torch.train import steps as st
 from ppn_tpu_torch.train.checkpoint import Checkpointer
 from ppn_tpu_torch.utils.logging import MetricLogger
-
-
-def check_ported(cfg: Config) -> None:
-    """Raise on the training options this port does not have yet."""
-    if cfg.train.steps_per_call > 1:
-        raise NotImplementedError(
-            "steps_per_call > 1 (the K-step device loop) is not ported: "
-            "ROADMAP.md queue 1 item 9")
 
 
 class Trainer:
@@ -53,14 +46,15 @@ class Trainer:
         ``parallel.shard_batch``), as numpy arrays or tensors.
         ``pretrained``: a torchvision-format ResNet ``.pth`` for the
         backbone (``steps.create_train_state``).
-        ``device_cache``: the JAX trainer reads it only for the K-step loop
-        (``steps_per_call > 1``), which is not ported; it is accepted so
-        that the signatures agree.
+        ``device_cache``: a ``data/device_cache.DeviceCache``. With
+        ``steps_per_call`` K > 1 it feeds the K-step loop
+        (``steps.make_multi_train_step``): K steps per call over (K, B)
+        index blocks. A cache built without a mesh is resharded over a
+        data group of more than one rank.
         ``init_npz``: an inference snapshot to fine-tune from — parameters
         and BatchNorm statistics loaded, optimizer and schedule fresh. A
         resume from this run's own checkpoints still supersedes it. Every
         rank loads, then rank 0's state is broadcast."""
-        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh or make_mesh(cfg.train.mesh_shape,
@@ -81,6 +75,16 @@ class Trainer:
             print(f"fine-tune init from {init_npz}")
         replicate(self.mesh, self.state)
         self.augment = cfg.data.augment if augment is None else augment
+        self.device_cache = device_cache
+        self.multi_step = None
+        k = cfg.train.steps_per_call
+        if device_cache is not None and k > 1:
+            axis = cfg.train.mesh_axes[0]
+            if self.mesh.size(axis) > 1 and device_cache.mesh is None:
+                # the CLI path builds its cache before the mesh exists
+                device_cache.reshard(self.mesh, axis)
+            self.multi_step = st.make_multi_train_step(
+                cfg, augment=self.augment, steps_per_call=k, mesh=self.mesh)
         self.ckpt = Checkpointer(cfg.train.checkpoint_dir)
         if cfg.train.resume:
             step = self.ckpt.restore_latest(self.state)
@@ -92,6 +96,31 @@ class Trainer:
     def step(self) -> int:
         return self.state.step
 
+    def _index_blocks(self, batch_size: int, k: int, seed: int):
+        """(k, batch_size) int32 index blocks for the K-step loop: shuffled
+        epochs (with replacement when the dataset is smaller than a batch),
+        the JAX trainer's blocks from the same numpy generator."""
+        n = self.device_cache.size
+        rng = np.random.default_rng(seed)
+        if n < batch_size:
+            while True:
+                yield rng.integers(0, n, (k, batch_size)).astype(np.int32)
+        buf = []
+        while True:
+            for i in rng.permutation(n)[
+                    :n - n % batch_size].reshape(-1, batch_size):
+                buf.append(i)
+                if len(buf) == k:
+                    yield np.stack(buf).astype(np.int32)
+                    buf = []
+
+    def _log(self, step: int, terms, imgs: int, t_last: float) -> float:
+        """Log the terms and the image rate since ``t_last``; returns now."""
+        logs = {k: float(v) for k, v in terms.items()}
+        logs["images_per_sec"] = imgs / max(time.time() - t_last, 1e-9)
+        self.logger.log(step, logs)
+        return time.time()
+
     def run(self, num_steps: Optional[int] = None) -> Dict[str, float]:
         t = self.cfg.train
         target = num_steps if num_steps is not None else t.num_steps
@@ -99,6 +128,25 @@ class Trainer:
         t_last = time.time()
         imgs = 0
         step = self.step
+        k = t.steps_per_call
+        if self.multi_step is not None and step + k <= target:
+            # blocks of K steps; the log, checkpoint and eval cadences fall
+            # on the block boundaries, and the tail below K takes the
+            # per-step loop
+            blocks = self._index_blocks(t.batch_size, k, t.seed + step)
+            while step + k <= target:
+                terms = self.multi_step(self.state, self.device_cache,
+                                        next(blocks))
+                imgs += t.batch_size * k
+                prev, step = step, step + k
+                if step // t.log_every > prev // t.log_every:
+                    t_last, imgs = self._log(step, terms, imgs, t_last), 0
+                if (t.checkpoint_every and step // t.checkpoint_every
+                        > prev // t.checkpoint_every):
+                    self.ckpt.save(step, self.state)
+                if (t.eval_every and self.val_dataset is not None
+                        and step // t.eval_every > prev // t.eval_every):
+                    self.logger.log(step, self.evaluate())
         while step < target:
             batch = next(self.batches)
             rows = len(batch["image"])
@@ -112,11 +160,7 @@ class Trainer:
             imgs += rows * self.mesh.size()
             step += 1
             if step % t.log_every == 0:
-                logs = {k: float(v) for k, v in terms.items()}
-                dt = time.time() - t_last
-                logs["images_per_sec"] = imgs / max(dt, 1e-9)
-                self.logger.log(step, logs)
-                t_last, imgs = time.time(), 0
+                t_last, imgs = self._log(step, terms, imgs, t_last), 0
             if t.checkpoint_every and step % t.checkpoint_every == 0:
                 self.ckpt.save(step, self.state)
             if (t.eval_every and self.val_dataset is not None

@@ -1,9 +1,11 @@
 """The port's file loaders (ppn_tpu_torch/data/{imageio,mpii,coco}.py and
 apps/video.jpeg_frames) against the JAX package's on the same files, on the
 CPU: every field of every sample bitwise equal to ``ppn_tpu.data.{mpii,
-coco}`` with ``native_jpeg=False`` (the reference's PIL path, the port's one
-decoder), and ``native_jpeg=True`` refused instead of falling back. The
-cases of tests/test_datasets.py, each also held against the reference."""
+coco}`` at both packages' default, ``native_jpeg=True`` (JPEGs through the
+native libjpeg pool, other files through PIL), and through PIL with
+``native_jpeg=False``; without the native library the native path raises
+instead of falling back to PIL. The cases of tests/test_datasets.py, each
+also held against the reference."""
 
 import json
 import os
@@ -35,9 +37,9 @@ def _one_torch_thread():
 
 
 def assert_same_samples(got_ds, want_ds):
-    """Every sample of the port's dataset bitwise the reference's, read
-    through the reference's PIL path."""
-    want_ds.native_jpeg = False
+    """Every sample of the port's dataset bitwise the reference's, each
+    read through its package's default decoding (native for JPEGs)."""
+    assert got_ds.native_jpeg and want_ds.native_jpeg
     assert len(got_ds) == len(want_ds)
     for i in range(len(want_ds)):
         got, want = got_ds[i], want_ds[i]
@@ -442,44 +444,66 @@ def test_coco_file_names_and_splits(tmp_path):
     assert str(got.value) == str(want.value)
 
 
-# ---- decoding: PIL by name, and no fallback ---------------------------------
+# ---- decoding: native for JPEGs by default, PIL by name, no fallback --------
 
 @pytest.mark.parametrize("ext", ["jpg", "png"])
 def test_load_resized_matches_jax(tmp_path, ext):
+    """Both decoders, each bitwise the reference's: the default (native for
+    a JPEG, PIL for a PNG) and ``native_jpeg=False`` (PIL)."""
     from ppn_tpu.data.imageio import load_resized as jax_load_resized
 
     rng = np.random.default_rng(1)
     for hw in SIZES.values():
         path = str(tmp_path / f"x{hw[0]}.{ext}")
         _image(rng, hw, path)
-        got, W0, H0 = load_resized(path, (96, 128))
-        want, jW0, jH0 = jax_load_resized(path, (96, 128),
-                                          native_jpeg=False)
-        assert (W0, H0) == (jW0, jH0) == (hw[1], hw[0])
-        assert got.dtype == np.float32 and got.shape == (96, 128, 3)
-        assert got.tobytes() == want.tobytes()
+        for native in (True, False):
+            got, W0, H0 = (load_resized(path, (96, 128)) if native else
+                           load_resized(path, (96, 128), native_jpeg=False))
+            want, jW0, jH0 = jax_load_resized(path, (96, 128),
+                                              native_jpeg=native)
+            assert (W0, H0) == (jW0, jH0) == (hw[1], hw[0])
+            assert got.dtype == np.float32 and got.shape == (96, 128, 3)
+            assert got.tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("where", ["load_resized_jpg", "load_resized_png",
                                    "mpii", "coco"])
-def test_native_jpeg_raises_and_never_falls_back(tmp_path, where):
-    """``native_jpeg=True`` (the native pool, ROADMAP item 13) raises for
-    every file, JPEG or not, and through both datasets."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        if where.startswith("load_resized"):
-            path = str(tmp_path / f"a.{where[-3:]}")
+def test_native_jpeg_raises_and_never_falls_back(tmp_path, where,
+                                                 monkeypatch):
+    """Without the native library (no ``pillow.libs`` where the loader
+    looks, and nothing loaded yet), ``native_jpeg=True`` raises naming the
+    cause for a JPEG, directly and through both datasets, instead of
+    decoding it through PIL; a PNG never needed the library and still
+    decodes through PIL, bitwise the reference's."""
+    from ppn_tpu.data.imageio import load_resized as jax_load_resized
+    from ppn_tpu_torch.native import loader
+
+    missing = tmp_path / "no_site" / "pillow.libs"
+    monkeypatch.setattr(loader, "pillow_libs", lambda: missing)
+    monkeypatch.setattr(loader, "_lib", None)
+    if where == "load_resized_png":
+        path = str(tmp_path / "a.png")
+        _image(np.random.default_rng(0), (8, 8), path)
+        got = load_resized(path, (8, 8), native_jpeg=True)
+        want = jax_load_resized(path, (8, 8), native_jpeg=True)
+        assert got[0].tobytes() == want[0].tobytes()
+        assert got[1:] == want[1:]
+        return
+    with pytest.raises(RuntimeError, match="no pillow.libs directory"):
+        if where == "load_resized_jpg":
+            path = str(tmp_path / "a.jpg")
             _image(np.random.default_rng(0), (8, 8), path)
             load_resized(path, (8, 8), native_jpeg=True)
         elif where == "mpii":
             root = _mpii_tree(tmp_path / "mpii")
             mpii.MPIIDataset(get_config("mpii_r18_384"), root,
-                             "annot/train.json", native_jpeg=True)[0]
+                             "annot/train.json")[0]
         else:
             root = _coco_tree(tmp_path / "coco")
             coco.COCOKeypointsDataset(
                 get_config("coco_r18_384"), root,
-                "annotations/person_keypoints_val2017.json", "val2017",
-                native_jpeg=True)[0]
+                "annotations/person_keypoints_val2017.json", "val2017")[0]
+    assert loader._lib is None
 
 
 def test_written_mpii_set_reads_back_the_synthetic_gt(tmp_path):
@@ -505,24 +529,24 @@ def test_written_mpii_set_reads_back_the_synthetic_gt(tmp_path):
 
 # ---- the video directory source ---------------------------------------------
 
-def test_jpeg_frames_match_jax(tmp_path, monkeypatch):
-    """The port's ``jpeg_frames`` against the reference's PIL branch (its
-    native library made unavailable), frame by frame and bitwise, cycling
-    three files of two sizes to 7 frames in name order; a directory
-    without JPEGs raises."""
+def test_jpeg_frames_match_jax(tmp_path):
+    """The port's ``jpeg_frames`` against the reference's native pool path,
+    frame by frame and bitwise, cycling three files of two sizes and a
+    corrupt one to 9 frames in name order: the corrupt frames are skipped
+    in both; a directory without JPEGs raises."""
     from ppn_tpu.apps import video as jvideo
     from ppn_tpu.native import loader
     from ppn_tpu_torch.apps import video
 
+    assert loader.available()
     rng = np.random.default_rng(2)
     for name, hw in (("b.jpg", (240, 320)), ("a.JPEG", (120, 160)),
                      ("c.jpeg", (240, 320))):
         _image(rng, hw, tmp_path / name)
-    _image(rng, (64, 64), tmp_path / "d.png")      # not a JPEG: skipped
-    monkeypatch.setattr(loader, "_load", lambda: None)
-    assert not loader.available()
-    got = list(video.jpeg_frames(str(tmp_path), 7, (96, 128)))
-    want = list(jvideo.jpeg_frames(str(tmp_path), 7, (96, 128)))
+    (tmp_path / "z.jpg").write_bytes(b"not a jpeg")  # skipped when decoded
+    _image(rng, (64, 64), tmp_path / "d.png")      # not a JPEG: not read
+    got = list(video.jpeg_frames(str(tmp_path), 9, (96, 128)))
+    want = list(jvideo.jpeg_frames(str(tmp_path), 9, (96, 128)))
     assert len(got) == len(want) == 7
     for g, w in zip(got, want):
         assert g.dtype == np.uint8 and g.shape == (96, 128, 3)

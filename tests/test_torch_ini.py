@@ -148,7 +148,6 @@ def test_cli_uses_the_ini(cli, tmp_path, monkeypatch, capsys):
     import importlib
 
     from ppn_tpu_torch.inference import Predictor
-    from ppn_tpu_torch.train import trainer
 
     ini = tmp_path / "config.ini"
     ini.write_text("[model]\ndetection_thresh = 0.123\nthresh = 0.3\n"
@@ -159,8 +158,9 @@ def test_cli_uses_the_ini(cli, tmp_path, monkeypatch, capsys):
         seen.append(cfg)
         raise _Resolved
 
-    # train hands its config to check_ported, the others to the Predictor
-    monkeypatch.setattr(trainer, "check_ported", stop)
+    # train hands its config to make_datasets, the others to the Predictor
+    monkeypatch.setattr(importlib.import_module("ppn_tpu_torch.apps.train"),
+                        "make_datasets", stop)
     monkeypatch.setattr(Predictor, "from_checkpoint", classmethod(
         lambda cls, cfg, *a, **k: stop(cfg)))
     flags, jax_overrides = CLIS[cli]

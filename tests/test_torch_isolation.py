@@ -199,3 +199,51 @@ def test_file_input_slice_is_scanned_and_defaults_to_cuda(no_cuda, tmp_path,
         video.main(["--config", "tiny_test", "--frames", "2", "--source",
                     os.path.join(root, "images")])
     assert capsys.readouterr().out == ""
+
+
+def test_native_and_k_step_slice_is_scanned_and_defaults_to_cuda(
+        no_cuda, tmp_path, capsys):
+    """The native pool's package is among the files scanned for imports;
+    its wrapper imports PIL only as the bare package, to find
+    ``pillow.libs``, never a PIL decoder. The K-step trainer (the library
+    and the CLI) and the video CLI on a directory of JPEGs (the native
+    pool) run on CUDA unless asked otherwise."""
+    scanned = {os.path.relpath(f, ROOT) for f in _port_files()}
+    for name in ("native/__init__.py", "native/loader.py"):
+        assert os.path.join("ppn_tpu_torch", name) in scanned
+    path = os.path.join(ROOT, "ppn_tpu_torch", "native", "loader.py")
+    pil = [m for m in _imported_modules(path) if m.split(".")[0] == "PIL"]
+    assert pil == ["PIL"]
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+                and getattr(n.value, "id", None) == "PIL"
+                and n.attr != "__file__"]
+
+    import dataclasses
+
+    from ppn_tpu_torch.apps import train, video
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.data.device_cache import DeviceCache
+    from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from ppn_tpu_torch.testing import write_mpii_set
+    from ppn_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("tiny_test")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, steps_per_call=2, batch_size=2))
+    cache = DeviceCache(SyntheticPoseDataset(cfg, size=2, seed=0),
+                        device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, iter([]), device_cache=cache)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--config", "tiny_test", "--overfit", "2", "--steps",
+                    "2", "--steps-per-call", "2", "--ckpt-dir",
+                    str(tmp_path / "ck")])
+    src = SyntheticPoseDataset(cfg, size=2, seed=0, cache=True)
+    root = str(tmp_path / "mpii")
+    write_mpii_set(cfg, root, {"train": (src, 2, 0)}, ext="jpg")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        video.main(["--config", "tiny_test", "--frames", "2", "--source",
+                    os.path.join(root, "images")])
+    assert capsys.readouterr().out == ""

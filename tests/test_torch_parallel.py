@@ -3,7 +3,11 @@ BatchNorm statistics, the gradient all-reduce, the Trainer's mesh) on the
 CPU: the mesh helpers and the rules of ``multihost.initialize`` (the cases
 of tests/test_parallel.py:59-125), then a real 2-process gloo world
 (tests/torch_dist_worker.py, spawned once for the module) against one
-process on the joined batch and against the JAX package's 2-device mesh.
+process on the joined batch and against the JAX package's 2-device mesh;
+then, in a second world of the same two processes, the capacity-sharded
+``DeviceCache`` (against the JAX package's per-device shards and the
+replicated cache) and the K-step loop over it (the two-rank cases of
+tests/test_device_cache.py and tests/test_multi_step.py).
 
 Tolerances: one f32 step of two ranks against one process within rel 1e-5
 on the loss terms and 1e-5·max|p| on every parameter and running
@@ -188,22 +192,122 @@ def _jax_bf16_state():
     return jcfg, jst.create_train_state(jcfg)
 
 
+# global index blocks for the sharded cache of 10 rows (5 per rank)
+SHARDED_BLOCKS = [[9, 1, 4, 0, 7, 2, 8, 3], [0, 0, 5, 4, 9, 9, 1, 6]]
+
+
+def _sharded_cases(mesh, outdir: str) -> dict:
+    """The capacity-sharded ``DeviceCache`` and the K-step loop on this
+    rank (tests/test_device_cache.py:83-185, tests/test_multi_step.py:133
+    and :180)."""
+    from ppn_tpu_torch.data.device_cache import DeviceCache
+    from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from ppn_tpu_torch.parallel import shard_batch
+    from ppn_tpu_torch.train import steps as st
+    from ppn_tpu_torch.train.trainer import Trainer
+
+    cfg = worker.config()
+    ten = SyntheticPoseDataset(cfg, size=10, seed=5)    # 10 % 8 != 0 there
+    sharded = DeviceCache(ten, device="cpu", mesh=mesh)
+    replicated = DeviceCache(ten, device="cpu")
+    resharded = DeviceCache(ten, device="cpu")
+    resharded.reshard(mesh)
+    small = DeviceCache(SyntheticPoseDataset(cfg, size=1, seed=7),
+                        device="cpu", mesh=mesh)        # 1 row, 2 ranks
+    out = {"rows": {"sharded": sharded.data, "resharded": resharded.data,
+                    "small": small.data},
+           "nbytes": [sharded.nbytes(), replicated.nbytes()],
+           "gathered": [sharded.batch(b) for b in SHARDED_BLOCKS]
+           + [resharded.batch(b) for b in SHARDED_BLOCKS]
+           + [small.batch([0] * worker.GLOBAL_BATCH)],
+           "replicated": [shard_batch(mesh, replicated.batch(b))
+                          for b in SHARDED_BLOCKS]}
+
+    # K=2 over the sharded cache against two train_step calls on the
+    # replicated cache's slices: the same rows, the same calls
+    kcfg = worker.config(steps_per_call=2)
+    a = st.create_train_state(kcfg, device="cpu")
+    b = st.create_train_state(kcfg, device="cpu")
+    idx = np.asarray(SHARDED_BLOCKS, np.int32)
+    multi = st.make_multi_train_step(kcfg, augment=True, steps_per_call=2,
+                                     mesh=mesh)(a, sharded, idx)
+    per = [st.train_step(kcfg, b, shard_batch(mesh, replicated.batch(i)),
+                         augment=True, mesh=mesh) for i in idx]
+    out["k_step_equal"] = (
+        a.step == b.step == 2
+        and all(torch.equal(v, b.model.state_dict()[k])
+                for k, v in a.model.state_dict().items())
+        and all(torch.equal(v, b.trace[k]) for k, v in a.trace.items())
+        and all(torch.equal(v, b.ema[k]) for k, v in a.ema.items())
+        and all(torch.equal(v, torch.stack([t[k] for t in per]).mean(0))
+                for k, v in multi.items()))
+
+    # the Trainer's K=2 loop over a cache built before the mesh (one block
+    # and one step of the per-step tail), and the same three steps taken
+    # one at a time by a Trainer on the replicated cache's slices
+    cache = DeviceCache(ten, device="cpu")
+    tcfg = worker.config(steps_per_call=2, resume=False,
+                  checkpoint_dir=os.path.join(outdir, "ckpt_k"))
+    trainer = Trainer(tcfg, cache.infinite_batches(worker.GLOBAL_BATCH, seed=0),
+                      augment=True, device="cpu", device_cache=cache)
+    terms = trainer.run(3)
+    block = next(trainer._index_blocks(worker.GLOBAL_BATCH, 2,
+                                     tcfg.train.seed))
+    tail = next(replicated.infinite_batches(worker.GLOBAL_BATCH, seed=0))
+    steps = Trainer(worker.config(resume=False,
+                           checkpoint_dir=os.path.join(outdir, "ckpt_1")),
+                    iter([shard_batch(mesh, replicated.batch(i))
+                          for i in block] + [shard_batch(mesh, tail)]),
+                    augment=True, device="cpu")
+    want = steps.run(3)
+    got_sd, want_sd = (t.state.model.state_dict() for t in (trainer, steps))
+    out["trainer"] = {
+        "step": trainer.step, "terms": terms,
+        "equal_to_steps": (steps.step == 3 and terms == want and all(
+            torch.equal(v, want_sd[k]) for k, v in got_sd.items())),
+        "cache_sharded": cache.mesh is trainer.mesh,
+        "cache_nbytes": cache.nbytes()}
+    trainer.close()
+    steps.close()
+    return out
+
+
+def _two_rank_main(rank: int, world: int, ports: tuple, outdir: str) -> None:
+    """One rank of the module's two-process world: tests/torch_dist_worker.py
+    on the first port, then ``_sharded_cases`` in a second gloo world on
+    the second, writing ``sharded<r>.pt``."""
+    from ppn_tpu_torch.parallel import make_mesh
+    from ppn_tpu_torch.parallel.multihost import initialize
+
+    worker.main(rank, world, ports[0], outdir)
+    initialize(f"127.0.0.1:{ports[1]}", world, rank, backend="gloo")
+    out = {}
+    try:
+        out = _sharded_cases(make_mesh(device="cpu"), outdir)
+    finally:
+        torch.save(out, os.path.join(outdir, f"sharded{rank}.pt"))
+        torch.distributed.destroy_process_group()
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    """Both ranks' results (tests/torch_dist_worker.py), the JAX state their
-    bf16 step started from, and the output directory."""
+    """Both ranks' results (tests/torch_dist_worker.py, and the sharded
+    cases under "sharded"), the JAX state their bf16 step started from, and
+    the output directory."""
     outdir = tmp_path_factory.mktemp("two_ranks")
     jcfg, (graphdef, jstate, tx) = _jax_bf16_state()
     leaves = [np.asarray(x) for x in jax.tree.leaves(
         {"params": jstate.params, "rest": jstate.rest})]
     torch.save(state_dict_from_jax_leaves(worker.config("bfloat16"), leaves),
                os.path.join(outdir, "jax_state.pt"))
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    torch.multiprocessing.spawn(worker.main, args=(2, port, str(outdir)),
+    with socket.socket() as a, socket.socket() as b:
+        a.bind(("127.0.0.1", 0))
+        b.bind(("127.0.0.1", 0))
+        ports = (a.getsockname()[1], b.getsockname()[1])
+    torch.multiprocessing.spawn(_two_rank_main, args=(2, ports, str(outdir)),
                                 nprocs=2, join=True)
-    ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"))
+    ranks = [dict(torch.load(os.path.join(outdir, f"rank{r}.pt")),
+                  sharded=torch.load(os.path.join(outdir, f"sharded{r}.pt")))
              for r in (0, 1)]
     return ranks, (jcfg, graphdef, jstate, tx), str(outdir)
 
@@ -290,3 +394,93 @@ def test_two_ranks_checkpoint_logs_and_refusals(two_ranks):
     full = DeviceCache(worker.dataset(), device="cpu").batch(
         np.arange(worker.GLOBAL_BATCH)[::-1])["image"]
     assert torch.equal(torch.cat([r["cache_image"] for r in ranks]), full)
+
+
+# ---- the capacity-sharded cache and the K-step loop on two ranks ------------
+
+def _jax_shards(size: int, seed: int) -> list:
+    """The JAX package's DeviceCache of tiny_test synthetic rows on a
+    2-device mesh: each device's rows by field, in device order."""
+    from ppn_tpu.data.device_cache import DeviceCache as JaxDeviceCache
+    from ppn_tpu.data.synthetic import SyntheticPoseDataset as JaxDataset
+
+    mesh = jax_make_mesh((2,), ("data",), devices=jax.devices()[:2])
+    cache = JaxDeviceCache(JaxDataset(jax_get_config("tiny_test"), size=size,
+                                      seed=seed), mesh=mesh)
+    return [{k: np.asarray(next(s.data for s in v.addressable_shards
+                                if s.device == d))
+             for k, v in cache.data.items()} for d in mesh.devices.flat]
+
+
+def test_two_ranks_sharded_cache_holds_the_jax_device_shards(two_ranks):
+    """tests/test_device_cache.py:83, :140 and :160 on two gloo ranks: each
+    rank holds exactly the rows ``NamedSharding(P("data"))`` gives its
+    device — built on the mesh, resharded after (both 10 rows, 5 each),
+    and a dataset of 1 row padded cyclically to one row per rank — and
+    half the replicated cache's bytes."""
+    ranks, _, _ = two_ranks
+    want = {"sharded": _jax_shards(10, 5), "resharded": _jax_shards(10, 5),
+            "small": _jax_shards(1, 7)}
+    for r, res in enumerate(ranks):
+        rows = res["sharded"]["rows"]
+        for label, shards in want.items():
+            assert rows[label].keys() == shards[r].keys()
+            for k, w in shards[r].items():
+                got = rows[label][k].numpy()
+                assert got.dtype == w.dtype and got.tobytes() == w.tobytes(), (
+                    r, label, k)
+        sharded_bytes, replicated_bytes = res["sharded"]["nbytes"]
+        assert 2 * sharded_bytes == replicated_bytes
+
+
+def test_two_ranks_sharded_gathers_are_the_replicated_caches(two_ranks):
+    """tests/test_device_cache.py:56/:105/:185: the gathered slices of the
+    sharded cache (built on the mesh, and resharded) bitwise the replicated
+    cache's slices of the same global blocks, rows held by the other rank
+    included; the 1-row cache gathers its one row on both ranks."""
+    from ppn_tpu_torch.data.device_cache import DeviceCache
+    from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+
+    ranks, _, _ = two_ranks
+    small = DeviceCache(SyntheticPoseDataset(worker.config(), size=1, seed=7),
+                        device="cpu").batch([0] * 4)
+    for r, res in enumerate(ranks):
+        got, want = res["sharded"]["gathered"], res["sharded"]["replicated"]
+        for g, w in zip(got[:2] + got[2:4], want + want):
+            assert g.keys() == w.keys()
+            for k in w:
+                assert g[k].dtype == w[k].dtype and torch.equal(g[k], w[k]), k
+            assert len(g["image"]) == worker.GLOBAL_BATCH // 2
+        for k, v in small.items():
+            assert torch.equal(got[4][k], v), k
+    # the first block's slices, joined, are the whole block's rows
+    whole = DeviceCache(SyntheticPoseDataset(worker.config(), size=10, seed=5),
+                        device="cpu").batch(SHARDED_BLOCKS[0])
+    assert torch.equal(torch.cat([res["sharded"]["gathered"][0]["image"]
+                                  for res in ranks]), whole["image"])
+
+
+def test_two_ranks_k_step_loop_on_the_sharded_cache(two_ranks):
+    """tests/test_multi_step.py:133 on two ranks: K=2 steps per call over
+    the sharded cache are bitwise two ``train_step`` calls on the
+    replicated cache's slices (state, traces, EMA and mean terms)."""
+    ranks, _, _ = two_ranks
+    assert all(res["sharded"]["k_step_equal"] for res in ranks)
+
+
+def test_two_ranks_k_step_trainer_on_a_resharded_cache(two_ranks):
+    """tests/test_multi_step.py:180 on two ranks: a ``Trainer`` with
+    ``steps_per_call`` 2 adopts a cache built before its mesh (resharded,
+    half the bytes) and runs one block and one step of the per-step tail:
+    bitwise the same three steps taken one at a time on the replicated
+    cache's slices (state and final terms), finite. Against one process
+    the f32 runs part by the sums' other order, amplified step by step
+    (2.5e-5·max|p| after two steps at lr 0.05); the one-step comparison
+    above holds that order at 1e-5."""
+    ranks, _, _ = two_ranks
+    for res in ranks:
+        got = res["sharded"]["trainer"]
+        assert got["step"] == 3 and got["cache_sharded"]
+        assert got["equal_to_steps"]
+        assert 2 * got["cache_nbytes"] == res["sharded"]["nbytes"][1]
+        assert all(np.isfinite(v) for v in got["terms"].values())

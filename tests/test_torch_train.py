@@ -435,10 +435,13 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
     ["--data", "mpii"], ["--data", "coco"], ["--ini", "x.ini"],
     ["--pretrained", "r18.pth"], ["--steps-per-call", "4"],
     ["--set", "train.mesh_shape=(2,)"]])
-def test_train_cli_refuses_unported_options(flags, tmp_path):
-    """Each option not ported yet raises, naming its ROADMAP.md item.
+def test_train_cli_refuses_unported_options(flags, tmp_path, capsys):
+    """Every option the JAX CLI has is ported now; each case runs it.
     ``--data mpii|coco`` is ported: one step on a two-image file tree
     writes its checkpoint.
+    ``--steps-per-call 4`` is ported: over the device cache, 5 steps are
+    one K-step block (logged at step 4, not before) and one step of the
+    per-step tail.
     ``--ini`` is ported: the INI's step count reaches the trainer.
     ``--pretrained`` is ported: the state before the first step holds the
     file's backbone. A mesh over more ranks than the world has (one
@@ -489,5 +492,12 @@ def test_train_cli_refuses_unported_options(flags, tmp_path):
         with pytest.raises(ValueError, match="does not cover the world of 1"):
             train.main(argv + flags)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(argv + flags)
+    import re
+
+    train.main(argv + flags + ["--overfit", "2", "--steps", "5",
+                               "--set", "train.log_every=1"])
+    out = capsys.readouterr().out
+    assert "device cache: 2 samples" in out
+    logged = re.findall(r"\] step=(\d+) ", out)
+    assert logged == ["4", "5"], logged
+    assert os.listdir(tmp_path) == ["ckpt_00000005.pt"]

@@ -104,6 +104,33 @@ def test_host_resize():
     assert video.host_resize(small, (64, 64)) is small
 
 
+def test_capture_frames_from_file(tmp_path):
+    """tests/test_video_file.py:9 on the port: a 5-frame mp4 written
+    through cv2 comes back as 5 RGB frames, the same as the reference's
+    ``capture_frames`` gives, correlated with what was written (the codec
+    is lossy)."""
+    cv2 = pytest.importorskip("cv2")
+    path = str(tmp_path / "clip.mp4")
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                        (160, 120))
+    assert w.isOpened(), "no mp4 encoder in this OpenCV"
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 255, (120, 160, 3), dtype=np.uint8)
+              for _ in range(5)]
+    for f in frames:
+        w.write(f[..., ::-1])  # the writer takes BGR
+    w.release()
+    got = list(video.capture_frames(path))
+    want = list(jvideo.capture_frames(path))
+    assert len(got) == len(want) == 5
+    assert got[0].shape == (120, 160, 3)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x)
+    corr = np.corrcoef(got[2].ravel().astype(float),
+                       frames[2].ravel().astype(float))[0, 1]
+    assert corr > 0.5, corr
+
+
 def test_capture_frames_bad_source():
     pytest.importorskip("cv2")
     with pytest.raises(RuntimeError, match="cannot open"):
@@ -126,8 +153,9 @@ def test_main_on_synthetic_frames(tmp_path, capsys):
 
 
 def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """A directory source is ported (PIL decode): one without JPEGs is
-    refused as the JAX package refuses it, one with JPEGs streams."""
+    """A directory source is ported (the native decode pool): one without
+    JPEGs is refused as the JAX package refuses it, one with JPEGs
+    streams."""
     from PIL import Image
 
     frames = tmp_path / "frames"
