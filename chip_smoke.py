@@ -112,7 +112,9 @@ Phases, each raising on failure:
                augmentation off, constant lr 0.007, 60 steps: the mean
                loss_total of the last 10 steps under half the first's;
 17. warp kernel times at B=32 bf16 (a CUDA graph of 50 launches, and back
-               to back) beside its plain version and its bound;
+               to back) beside its plain version and its bound; at B=128
+               (the suite's configs 3b and 3c) bitwise its plain version,
+               and timed likewise;
 18. data parallel, one rank — ``Trainer`` on mpii_r18_384 at B=32, bf16,
                augmentation on, constant lr, 10 steps from the snapshot over
                a ``DeviceCache`` on its mesh (``mesh_shape`` (-1,)): as rank
@@ -182,9 +184,21 @@ Phases, each raising on failure:
                f32 steps, where phase 19 holds one at 1e-5·max|p|); bf16
                B=32 two blocks, loss_total within rel 2e-3 (phase 19's
                tolerances); K warp launches per call and rank;
-26. report  — the serving, evaluation, file-input, ninth and eleventh
-               slices' numbers, the kernels line, then the device line
-               last.
+26. benchmark suite — ``ppn_tpu_torch/bench/suite.main`` in this
+               process at the reference's default sizes, one config at a
+               time (1, 2, 3, 3b, 3c, 4, 4b, 5, 5p, 6, 7, 7w, then 1 and 2
+               again for the spread between runs): each record's value
+               finite and positive and its ``card`` this card, no server
+               mismatch in 7 and in every 7w point, 4b's ``mfu_pct`` in
+               (0, 100], all 96 frames of 6 through the pool, and each
+               config's launches of both kernels equal to what its code
+               implies (``expected_bench_launches``); then
+               ``python -m ppn_tpu_torch.bench.headline`` as a subprocess:
+               rc 0, one JSON line with the stated keys, ``mfu_pct`` in
+               (0, 100];
+27. report  — the serving, evaluation, file-input, ninth, eleventh and
+               benchmark slices' numbers, the kernels line, then the device
+               line last.
 
 Launch counts are set to 0 just before each path (phase 5 for inference,
 7 for TTA, 8 for each evaluation and CLI run, 9 for each CLI run on files,
@@ -192,8 +206,8 @@ Launch counts are set to 0 just before each path (phase 5 for inference,
 one-rank run and its evaluation, 19 in each rank and in the one process
 before its steps, 20 before the exported call, 23 before the evaluate and
 video CLIs, 24 before the K-step call, 25 in each rank and in the one
-process before its Trainer runs) and read just after it; comparison and
-timing launches fall outside those windows.
+process before its Trainer runs, 26 before each suite config) and read
+just after it; comparison and timing launches fall outside those windows.
 """
 
 from __future__ import annotations
@@ -289,6 +303,12 @@ NATIVE_SET_ORIGIN = {
 POOL_JOBS = 128          # phase 23: images through the pool per timing
 K_STEPS = 4              # phase 24: steps per K-step call
 SHARDED_BLOCKS = 4       # phase 25: global blocks gathered and compared
+# phase 26: the suite's twelve configs, each at its reference defaults
+BENCH_CONFIGS = ("1", "2", "3", "3b", "3c", "4", "4b", "5", "5p", "6", "7",
+                 "7w")
+HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline", "batch",
+                 "mfu_pct", "device_batch_ms", "host_loop_images_per_sec",
+                 "flops_source", "card"}
 # (angle, scale, tx, flip): the warp cases of tests/test_pallas_warp.py
 WARP_CASES = [(0.0, 1.0, 0.0, False), (0.3, 1.1, 12.0, False),
               (-0.5, 0.8, -7.0, False), (0.7, 1.25, 3.0, True),
@@ -300,10 +320,10 @@ def log(msg: str) -> None:
 
 
 def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+    """The card's ``nvidia-smi`` name and power limit line."""
+    from ppn_tpu_torch.bench.suite import card
+
+    return card("cuda")
 
 
 def compare(got, want) -> tuple[bool, int, float]:
@@ -1453,6 +1473,123 @@ def sharded_phase(cfg, cache, card: str) -> dict:
     return out
 
 
+def slope_calls(iters: int) -> int:
+    """Calls ``utils/profiling.device_latency_ms`` makes at ``iters`` (3
+    repeats): one probe, then runs of ``iters`` and ``2·iters``."""
+    return 1 + 3 * iters + 3 * 2 * iters
+
+
+def timeit_calls(iters: int) -> int:
+    """Calls ``utils/profiling.timeit`` makes: 2 warm-up, 3 runs."""
+    return 2 + 3 * iters
+
+
+def serve_post_launches(point: dict, n: int = 512, max_batch: int = 32) -> int:
+    """Post launches of one ``apps/serve.main`` self-test: the warm-up (each
+    power-of-two bucket up to ``max_batch``, uint8 and f32), one per
+    served batch, and the check's direct predicts (``ceil(n / b)`` for
+    each bucket b the server used)."""
+    buckets = int(math.log2(max_batch)) + 1
+    sizes = {int(b): c for b, c in point["batches_by_size"].items()}
+    return (2 * buckets + sum(sizes.values())
+            + sum(-(-n // b) for b in sizes))
+
+
+def expected_bench_launches(c: str, rec: dict) -> tuple[int, int]:
+    """(ppn_post_kernel, ppn_warp_kernel) launches config ``c`` of
+    ``ppn_tpu_torch/bench/suite.py`` makes at its defaults; where the
+    count depends on the run (frames the video loop took, the server's
+    batches), it is read from the record. The session reference is
+    measured by config 1, which runs first, so no later config adds its
+    calls."""
+    if c == "1":       # latency_percentiles: 50 calls, 3 warm-up
+        return 53 + slope_calls(32), 0
+    if c in ("2", "4"):
+        return timeit_calls(30), 0
+    if c in ("3", "3b"):   # one warm-up step, 20 host-loop steps
+        return 0, 1 + 20 + slope_calls(8)
+    if c == "3c":      # a warm-up call and 4 timed calls of K=8 steps
+        return 0, 5 * 8
+    if c == "4b":
+        return timeit_calls(20) + slope_calls(10), 0
+    if c in ("5", "5p"):   # each processed frame, the warm-up frame
+        return rec["frames"] + 1 + slope_calls(32), 0
+    if c == "6":       # warm-up, the serial pass, the pipelined pass
+        return 1 + 2 * rec["frames"], 0
+    if c == "7":
+        return serve_post_launches(rec), 0
+    if c == "7w":
+        return sum(serve_post_launches(p) for p in rec["points"]), 0
+    raise KeyError(c)
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 26: the port's benchmark suite in this process, one config at
+    a time through ``suite.main --configs <c> --out``, the launch counts
+    set to 0 before each and read after; each record checked; configs 1
+    and 2 again for the spread between runs; the headline
+    (``python -m ppn_tpu_torch.bench.headline``) as a subprocess."""
+    from ppn_tpu_torch.bench import suite
+    from ppn_tpu_torch.ops import cuda_post, cuda_warp
+
+    records, launches, seconds = {}, {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for c in BENCH_CONFIGS + ("1", "2"):
+            again = c in records
+            cuda_post.LAUNCHES = cuda_warp.LAUNCHES = 0
+            t0 = time.perf_counter()
+            path = os.path.join(d, f"{c}.json")
+            suite.main(["--configs", c, "--out", path])
+            key = f"{c}_again" if again else c
+            seconds[key] = time.perf_counter() - t0
+            launches[key] = (cuda_post.LAUNCHES, cuda_warp.LAUNCHES)
+            with open(path) as f:
+                (records[key],) = json.load(f)
+    for key, rec in records.items():
+        c = key.split("_")[0]
+        want = expected_bench_launches(c, rec)
+        log(f"[bench] {key}: {rec['config']} {rec['metric']} {rec['value']} "
+            f"{rec['unit']}; launches ppn_post_kernel {launches[key][0]}, "
+            f"ppn_warp_kernel {launches[key][1]} (the code implies {want}); "
+            f"{seconds[key]:.1f} s | {rec['card']}")
+        if not (isinstance(rec["value"], (int, float))
+                and math.isfinite(rec["value"]) and rec["value"] > 0):
+            raise AssertionError(f"bench {key}: value {rec['value']!r}")
+        if launches[key] != want:
+            raise AssertionError(f"bench {key}: launches {launches[key]}, "
+                                 f"the code implies {want}")
+        if rec["card"] != card:
+            raise AssertionError(f"bench {key}: card {rec['card']!r}")
+    for rec in (records["7"], *records["7w"]["points"]):
+        if rec["selftest_rc"] != 0 or rec["mismatches"] != 0:
+            raise AssertionError(f"bench serving mismatches: {rec}")
+    if not 0 < records["4b"]["mfu_pct"] <= 100:
+        raise AssertionError(f"bench 4b mfu_pct {records['4b']['mfu_pct']}")
+    if records["6"]["frames"] != 96:
+        raise AssertionError(f"bench 6 frames {records['6']['frames']}")
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ppn_tpu_torch.bench.headline"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds["headline"] = time.perf_counter() - t0
+    lines = r.stdout.splitlines()
+    log(f"[bench] headline rc {r.returncode} in {seconds['headline']:.1f} s: "
+        f"{r.stdout.strip()}")
+    if r.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"headline rc {r.returncode}, stdout "
+                             f"{r.stdout!r}, stderr {r.stderr[-2000:]!r}")
+    head = json.loads(lines[0])
+    if (set(head) != HEADLINE_KEYS or not 0 < head["mfu_pct"] <= 100
+            or not head["value"] > 0 or head["card"] != card):
+        raise AssertionError(f"headline line: {head}")
+    log(f"[bench] run to run: config 1 p50 {records['1']['value']} / "
+        f"{records['1_again']['value']} ms, config 2 "
+        f"{records['2']['value']} / {records['2_again']['value']} img/s | "
+        f"{card}")
+    return {"records": records, "launches": launches, "seconds": seconds,
+            "headline": head}
+
+
 def main() -> int:
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2007,6 +2144,21 @@ def main() -> int:
     log(f"[time] B=32 384x384x3 bf16: ppn_warp_kernel {w_ms:.4f} ms (CUDA "
         f"graph of 50 launches; back to back {w_eager_ms:.4f} ms), plain "
         f"{wp_ms:.3f} ms, bound {w_bound:.6f} ms (bytes) | {card}")
+    # B=128, the batch of the suite's configs 3b and 3c: held bitwise, timed
+    x128 = cache.data["image"][:128].to(torch.float32).div(255.0).to(
+        torch.bfloat16)
+    m128 = warp_matrices(mpii, 128, dev, seed=128)
+    got = cuda_warp.affine_warp_cuda(x128, m128)
+    if not torch.equal(got, affine_warp_separable_plain(x128, m128)):
+        raise AssertionError("ppn_warp_kernel differs from its plain version "
+                             "at B=128")
+    w128_ms = graph_ms(functools.partial(cuda_warp.affine_warp_cuda, x128,
+                                         m128), 50)
+    wp128_ms = time_ms(lambda: affine_warp_separable_plain(x128, m128), 5)
+    w128_bound = warp_bound_ms(x128)
+    log(f"[time] B=128 384x384x3 bf16: ppn_warp_kernel {w128_ms:.4f} ms "
+        f"(CUDA graph of 50 launches; bitwise its plain version), plain "
+        f"{wp128_ms:.3f} ms, bound {w128_bound:.6f} ms (bytes) | {card}")
 
     # ---- 18. data-parallel training, one rank over NCCL ---------------------
     dp1 = dp_one_rank(cfg, train_ds, val, dev)
@@ -2146,7 +2298,10 @@ def main() -> int:
     # ---- 25. the capacity-sharded cache on two ranks, K=2 Trainer ----------
     sharded = sharded_phase(cfg, cache, card)
 
-    # ---- 26. report ---------------------------------------------------------
+    # ---- 26. the benchmark suite and the headline ---------------------------
+    bench = bench_phase(card)
+
+    # ---- 27. report ---------------------------------------------------------
     k_ms, p_ms, bound, whole, eager_ms, call_us = times[B]
     k1_ms, p1_ms, bound1, whole1, eager1_ms, call1_us = times[1]
     log(json.dumps({"serving_slice": {
@@ -2167,6 +2322,7 @@ def main() -> int:
         "profiling": prof}}))
     log(json.dumps({"eleventh_slice": {
         "native_decode": native, "k_step": kstep, "sharded_cache": sharded}}))
+    log(json.dumps({"bench_suite": bench}))
     log(card)   # the nvidia-smi name,power.limit line, as it prints it
     log(json.dumps({"kernels": [{
         "name": "ppn_post_kernel", "route": "cuda",
@@ -2200,6 +2356,8 @@ def main() -> int:
             "post_launches"] + files["video"]["launches"],
         "launches_native_files": (native["evaluate"]["launches"]
                                   + native["video"]["launches"]),
+        "launches_bench_suite": {k: v[0] for k, v in bench["launches"].items()
+                                 if v[0]},
     }, {
         "name": "ppn_warp_kernel", "route": "cuda",
         "source": "ppn_tpu_torch/csrc/warp.cu",
@@ -2221,6 +2379,10 @@ def main() -> int:
         "launches_per_k_step_call": kstep["warp_launches_per_call"],
         "launches_sharded_k_step_per_rank": [
             sharded[f"rank{r}"]["launches"] for r in (0, 1)],
+        "launches_bench_suite": {k: v[1] for k, v in bench["launches"].items()
+                                 if v[1]},
+        "ms_b128": w128_ms, "plain_ms_b128": wp128_ms,
+        "bound_ms_b128": w128_bound,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

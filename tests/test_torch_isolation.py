@@ -1,7 +1,12 @@
 """The port stands alone: no file of ppn_tpu_torch/ and not chip_smoke.py
 imports jax, flax or the JAX package, and the entry points run on CUDA
 unless the caller asks for the CPU — without a GPU they raise instead of
-falling back."""
+falling back.
+
+grain, tensorflow and tensorboard are forbidden too: importing
+``grain.python`` leaves ``jax`` in ``sys.modules``, and
+``torch.utils.tensorboard`` loads tensorflow, which loads jax; the card's
+machine has none of the three."""
 
 import ast
 import os
@@ -11,7 +16,8 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ppn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ppn_tpu", "grain",
+             "tensorflow", "tensorboard")
 
 
 def _port_files():
@@ -247,3 +253,20 @@ def test_native_and_k_step_slice_is_scanned_and_defaults_to_cuda(
         video.main(["--config", "tiny_test", "--frames", "2", "--source",
                     os.path.join(root, "images")])
     assert capsys.readouterr().out == ""
+
+
+def test_bench_is_scanned_and_defaults_to_cuda(no_cuda, capsys):
+    """The benchmark suite and headline are among the files scanned for
+    imports, and they run on CUDA unless asked otherwise."""
+    scanned = {os.path.relpath(f, ROOT) for f in _port_files()}
+    for name in ("bench/__init__.py", "bench/suite.py", "bench/headline.py"):
+        assert os.path.join("ppn_tpu_torch", name) in scanned
+    from ppn_tpu_torch.bench import headline, suite
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        suite._flagship()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        headline.run_bench()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        suite.main(["--configs", "7"])
+    assert '"value"' not in capsys.readouterr().out
