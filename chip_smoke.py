@@ -15,8 +15,11 @@ Phases, each raising on failure:
                in the imported Pillow's ``pillow.libs`` (a missing one
                fails the run: there is no PIL fallback);
   3. post kernel — against its plain PyTorch version on the card:
-               tiny_test, mpii_r18_384 at B=1, 8, 128 and coco_r18_384_crowded
-               at B=128 on the ``normal``, ``sparse``, ``ties`` and ``nan``
+               tiny_test, mpii_r18_384 at B=1, 2, 4, 8, 16, 32, 128,
+               coco_r18_384 at B=32 (its own det 0.15 / nms 0.3) and
+               coco_r18_384_crowded at B=128 (every batch and threshold
+               set phase 26's suite gives the kernel) on the ``normal``,
+               ``sparse``, ``ties`` and ``nan``
                maps (``nan``: 1% of the limb logits and a few proposal
                logits NaN), the edge cases: no proposal above the threshold
                (``empty``), every proposal above it in NMS chains
@@ -214,6 +217,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import json
 import math
 import os
@@ -1473,22 +1477,34 @@ def sharded_phase(cfg, cache, card: str) -> dict:
     return out
 
 
+def default(fn, name: str):
+    """The default of ``fn``'s parameter ``name`` (a partial's bound value
+    where it binds one), so each count below reads the sizes and
+    repeats from the code that owns them."""
+    return inspect.signature(fn).parameters[name].default
+
+
 def slope_calls(iters: int) -> int:
-    """Calls ``utils/profiling.device_latency_ms`` makes at ``iters`` (3
-    repeats): one probe, then runs of ``iters`` and ``2·iters``."""
-    return 1 + 3 * iters + 3 * 2 * iters
+    """Calls ``utils/profiling.device_latency_ms`` makes at ``iters``: one
+    probe, then ``repeats`` runs each of ``iters`` and ``2·iters``."""
+    from ppn_tpu_torch.utils.profiling import device_latency_ms
+
+    return 1 + default(device_latency_ms, "repeats") * 3 * iters
 
 
 def timeit_calls(iters: int) -> int:
-    """Calls ``utils/profiling.timeit`` makes: 2 warm-up, 3 runs."""
-    return 2 + 3 * iters
+    """Calls ``utils/profiling.timeit`` makes: ``warmup``, then
+    ``repeats`` runs of ``iters``."""
+    from ppn_tpu_torch.utils.profiling import timeit
+
+    return default(timeit, "warmup") + default(timeit, "repeats") * iters
 
 
-def serve_post_launches(point: dict, n: int = 512, max_batch: int = 32) -> int:
-    """Post launches of one ``apps/serve.main`` self-test: the warm-up (each
-    power-of-two bucket up to ``max_batch``, uint8 and f32), one per
-    served batch, and the check's direct predicts (``ceil(n / b)`` for
-    each bucket b the server used)."""
+def serve_post_launches(point: dict, n: int, max_batch: int) -> int:
+    """Post launches of one ``apps/serve.main`` self-test of ``n``
+    requests: the warm-up (each power-of-two bucket up to ``max_batch``,
+    uint8 and f32), one per served batch, and the check's direct predicts
+    (``ceil(n / b)`` for each bucket b the server used)."""
     buckets = int(math.log2(max_batch)) + 1
     sizes = {int(b): c for b, c in point["batches_by_size"].items()}
     return (2 * buckets + sum(sizes.values())
@@ -1497,29 +1513,38 @@ def serve_post_launches(point: dict, n: int = 512, max_batch: int = 32) -> int:
 
 def expected_bench_launches(c: str, rec: dict) -> tuple[int, int]:
     """(ppn_post_kernel, ppn_warp_kernel) launches config ``c`` of
-    ``ppn_tpu_torch/bench/suite.py`` makes at its defaults; where the
-    count depends on the run (frames the video loop took, the server's
-    batches), it is read from the record. The session reference is
-    measured by config 1, which runs first, so no later config adds its
-    calls."""
-    if c == "1":       # latency_percentiles: 50 calls, 3 warm-up
-        return 53 + slope_calls(32), 0
+    ``ppn_tpu_torch/bench/suite.py`` makes at its defaults, read from the
+    bench function's signature and the timers'; where the count depends
+    on the run (frames the video loop took, the server's batches), it is
+    read from the record. The session reference is measured by config 1,
+    which runs first, so no later config adds its calls."""
+    from ppn_tpu_torch.bench import suite
+    from ppn_tpu_torch.utils.profiling import latency_percentiles
+
+    fn = suite._BENCHES[c]
+    if c == "1":       # warm-up and timed calls, then the slope
+        return (default(latency_percentiles, "warmup") + default(fn, "calls")
+                + slope_calls(default(fn, "iters")), 0)
     if c in ("2", "4"):
-        return timeit_calls(30), 0
-    if c in ("3", "3b"):   # one warm-up step, 20 host-loop steps
-        return 0, 1 + 20 + slope_calls(8)
-    if c == "3c":      # a warm-up call and 4 timed calls of K=8 steps
-        return 0, 5 * 8
+        return timeit_calls(default(fn, "iters")), 0
+    if c in ("3", "3b"):   # one warm-up step, the host loop, the slope
+        return 0, (1 + default(fn, "iters")
+                   + slope_calls(default(fn, "device_iters")))
+    if c == "3c":      # a warm-up call and the timed calls of k steps
+        return 0, (1 + default(fn, "iters")) * default(fn, "k")
     if c == "4b":
-        return timeit_calls(20) + slope_calls(10), 0
+        return (timeit_calls(default(fn, "iters"))
+                + slope_calls(default(fn, "device_iters")), 0)
     if c in ("5", "5p"):   # each processed frame, the warm-up frame
-        return rec["frames"] + 1 + slope_calls(32), 0
+        return rec["frames"] + 1 + slope_calls(default(fn, "iters")), 0
     if c == "6":       # warm-up, the serial pass, the pipelined pass
         return 1 + 2 * rec["frames"], 0
+    max_batch = default(suite.bench_serving, "max_batch")
     if c == "7":
-        return serve_post_launches(rec), 0
+        return serve_post_launches(rec, default(fn, "n"), max_batch), 0
     if c == "7w":
-        return sum(serve_post_launches(p) for p in rec["points"]), 0
+        return sum(serve_post_launches(p, default(fn, "n"), max_batch)
+                   for p in rec["points"]), 0
     raise KeyError(c)
 
 
@@ -1641,9 +1666,14 @@ def main() -> int:
                 log(f"[build] {source}: {line.strip()}")
 
     # ---- 3. post kernel against plain on the card ---------------------------
+    # every batch and threshold set the main paths give the kernel: the
+    # server's power-of-two buckets up to 32, the suite's B=32 inference on
+    # mpii_r18_384 and on coco_r18_384 (det 0.15 / nms 0.3), B=128
     cases = [(name, B, kind) for name, B in (
-        ("tiny_test", 3), ("mpii_r18_384", 1), ("mpii_r18_384", 8),
-        ("mpii_r18_384", 128), ("coco_r18_384_crowded", 128))
+        ("tiny_test", 3), ("mpii_r18_384", 1), ("mpii_r18_384", 2),
+        ("mpii_r18_384", 4), ("mpii_r18_384", 8), ("mpii_r18_384", 16),
+        ("mpii_r18_384", 32), ("mpii_r18_384", 128), ("coco_r18_384", 32),
+        ("coco_r18_384_crowded", 128))
         for kind in KINDS]
     cases += [("mpii_r18_384", 8, "empty"), ("mpii_r18_384", 8, "chain"),
               ("coco_r18_384_crowded", 8, "chain"),

@@ -12,7 +12,7 @@ back-to-back slope of ``utils/profiling.device_latency_ms``), ``unit``,
 ``mfu_pct`` (the forward's conv and matmul FLOPs, ``flops_source``,
 against the card's dense bf16 peak or ``PPN_PEAK_TFLOPS``),
 ``device_batch_ms``, ``host_loop_images_per_sec`` (the best of 3 host
-loops of 30 calls, the last call's output fetched) and ``card``.
+loops of 30 calls, each ended by a device synchronization) and ``card``.
 
 Any failure raises and the exit code is not 0: no probe, no watchdog, no
 retry and no error line.
@@ -22,48 +22,29 @@ from __future__ import annotations
 
 import json
 import os
-import time
 
-from ppn_tpu_torch.bench.suite import (BASELINE_IMAGES_PER_SEC,
-                                       FLOPS_SOURCE, _flagship, _images,
-                                       _pipeline_body, card, forward_flops,
-                                       peak_bf16_tflops)
-from ppn_tpu_torch.utils.profiling import device_latency_ms
+from ppn_tpu_torch.bench.suite import (BASELINE_IMAGES_PER_SEC, card,
+                                       serving_batch)
 
 
 def run_bench(config_name="mpii_r18_384", batch=None, device=None) -> dict:
-    """Measure, print the headline line and return it as a dict."""
+    """Measure, print the headline line and return it as a dict: three
+    calls to settle, the best of 3 host loops of 30 calls, then
+    ``device_batch_ms`` over 10 and 20 calls (``suite.serving_batch``)."""
     if batch is None:
         batch = int(os.environ.get("PPN_BENCH_BATCH", "128"))
-    cfg, model = _flagship(config_name, device)
-    dev = next(model.parameters()).device
-    peak = peak_bf16_tflops(dev) * 1e12
-    flops = forward_flops(cfg, batch)
-    body = _pipeline_body(cfg, model)
-    images = _images(cfg, batch, dev)
-
-    def timed(iters: int) -> float:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = body(images)
-        out[2].cpu()   # waits for the last call
-        return time.perf_counter() - t0
-
-    timed(3)  # settle
-    iters = 30
-    t = min(timed(iters) for _ in range(3))
-    dev_ms = device_latency_ms(body, images, iters=10)
-    ips = batch / dev_ms * 1e3
+    _cfg, dev, m = serving_batch(config_name, batch, iters=30,
+                                 device_iters=10, device=device, warmup=3)
     rec = {
         "metric": "inference_images_per_sec_chip",
-        "value": round(ips, 2),
+        "value": m["value"],
         "unit": "images/sec",
-        "vs_baseline": round(ips / BASELINE_IMAGES_PER_SEC, 4),
+        "vs_baseline": round(m["value"] / BASELINE_IMAGES_PER_SEC, 4),
         "batch": batch,
-        "mfu_pct": round(flops / batch * ips / peak * 100.0, 2),
-        "device_batch_ms": round(dev_ms, 3),
-        "host_loop_images_per_sec": round(batch * iters / t, 2),
-        "flops_source": FLOPS_SOURCE,
+        "mfu_pct": m["mfu_pct"],
+        "device_batch_ms": m["device_batch_ms"],
+        "host_loop_images_per_sec": m["host_loop_images_per_sec"],
+        "flops_source": m["flops_source"],
         "card": card(dev),
     }
     print(json.dumps(rec), flush=True)
