@@ -199,9 +199,24 @@ Phases, each raising on failure:
                ``python -m ppn_tpu_torch.bench.headline`` as a subprocess:
                rc 0, one JSON line with the stated keys, ``mfu_pct`` in
                (0, 100];
-27. report  — the serving, evaluation, file-input, ninth, eleventh and
-               benchmark slices' numbers, the kernels line, then the device
-               line last.
+27. parity leftovers — ``data/pipeline.make_grain_loader`` over 64
+               synthetic mpii_r18_384 images (seed 0), B=32, 5 epochs, at
+               4 spawned worker processes and at 0: the 10 batches' sha256
+               equal, the loader's img/s at each (worker start included);
+               10 ``train_step`` calls (bf16, augmentation on, constant lr)
+               from the committed MPII snapshot on the 4-worker batches,
+               exactly 10 warp launches, the median step; each step's terms
+               through ``MetricLogger(logdir, tensorboard=True)``, the
+               event file read back by this script's own TFRecord reader
+               (a bitwise CRC-32C, not the writer's): 1 + 10·(terms)
+               records, every CRC, ``file_version`` ``brain.Event:2``, each
+               event the logged term rounded to f32 under its tag and step
+               with the scalars plugin; ``nn.num_params`` of the model
+               equal to the JAX package's count for mpii_r18_384, which
+               tests/test_torch_leftovers.py pins;
+28. report  — the serving, evaluation, file-input, ninth, eleventh,
+               benchmark and parity-leftover slices' numbers, the kernels
+               line, then the device line last.
 
 Launch counts are set to 0 just before each path (phase 5 for inference,
 7 for TTA, 8 for each evaluation and CLI run, 9 for each CLI run on files,
@@ -209,8 +224,9 @@ Launch counts are set to 0 just before each path (phase 5 for inference,
 one-rank run and its evaluation, 19 in each rank and in the one process
 before its steps, 20 before the exported call, 23 before the evaluate and
 video CLIs, 24 before the K-step call, 25 in each rank and in the one
-process before its Trainer runs, 26 before each suite config) and read
-just after it; comparison and timing launches fall outside those windows.
+process before its Trainer runs, 26 before each suite config, 27 before
+its steps) and read just after it; comparison and timing launches fall
+outside those windows.
 """
 
 from __future__ import annotations
@@ -313,6 +329,11 @@ BENCH_CONFIGS = ("1", "2", "3", "3b", "3c", "4", "4b", "5", "5p", "6", "7",
 HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline", "batch",
                  "mfu_pct", "device_batch_ms", "host_loop_images_per_sec",
                  "flops_source", "card"}
+# phase 27: the loader's images and worker processes, the steps taken
+PARITY_IMAGES, PARITY_WORKERS, PARITY_STEPS = 64, 4, 10
+# the JAX package's num_params of mpii_r18_384, which
+# tests/test_torch_leftovers.py pins on the CPU
+MPII_R18_384_PARAMS = 14_254_006
 # (angle, scale, tx, flip): the warp cases of tests/test_pallas_warp.py
 WARP_CASES = [(0.0, 1.0, 0.0, False), (0.3, 1.1, 12.0, False),
               (-0.5, 0.8, -7.0, False), (0.7, 1.25, 3.0, True),
@@ -1615,6 +1636,191 @@ def bench_phase(card: str) -> dict:
             "headline": head}
 
 
+def crc32c_bitwise(data: bytes) -> int:
+    """CRC-32C bit by bit (this script's own, not the event writer's table
+    routine)."""
+    c = 0xFFFFFFFF
+    for byte in data:
+        c ^= byte
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 & -(c & 1))
+    return c ^ 0xFFFFFFFF
+
+
+def read_tfrecords(path: str) -> list:
+    """The payloads of a TFRecord file; raises on a bad length or payload
+    CRC, or on a truncated record."""
+    def masked(b: bytes) -> int:
+        c = crc32c_bitwise(b)
+        return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+    data, out, i = open(path, "rb").read(), [], 0
+    while i < len(data):
+        head = data[i:i + 8]
+        n = int.from_bytes(head, "little")
+        payload = data[i + 12:i + 12 + n]
+        crcs = (int.from_bytes(data[i + 8:i + 12], "little"),
+                int.from_bytes(data[i + 12 + n:i + 16 + n], "little"))
+        if len(payload) != n or crcs != (masked(head), masked(payload)):
+            raise AssertionError(f"{path}: bad record at byte {i}")
+        out.append(payload)
+        i += 16 + n
+    return out
+
+
+def proto_fields(buf: bytes) -> dict:
+    """A protocol buffer message's fields: number → list of values (ints
+    for varints, bytes for length-delimited and fixed-width fields)."""
+    out, i = {}, 0
+
+    def varint():
+        nonlocal i
+        v = shift = 0
+        while True:
+            b = buf[i]
+            i += 1
+            v |= (b & 0x7F) << shift
+            shift += 7
+            if b < 0x80:
+                return v
+    while i < len(buf):
+        key = varint()
+        wire = key & 7
+        if wire == 0:
+            v = varint()
+        elif wire == 1:
+            v, i = buf[i:i + 8], i + 8
+        elif wire == 2:
+            n = varint()
+            v, i = buf[i:i + n], i + n
+        elif wire == 5:
+            v, i = buf[i:i + 4], i + 4
+        else:
+            raise AssertionError(f"wire type {wire}")
+        out.setdefault(key >> 3, []).append(v)
+    return out
+
+
+def scalar_events(payloads: list) -> tuple:
+    """The file version of the first ``Event`` and (step, tag, f32 bytes,
+    plugin, data class) of each later one, each holding one scalar."""
+    first = proto_fields(payloads[0])
+    rows = []
+    for p in payloads[1:]:
+        ev = proto_fields(p)
+        (value,) = proto_fields(ev[5][0])[1]
+        v = proto_fields(value)
+        tensor, meta = proto_fields(v[8][0]), proto_fields(v[9][0])
+        step = ev.get(2, [0])[0]
+        if tensor[1] != [1] or tensor[2] != [b""]:
+            raise AssertionError(f"not a DT_FLOAT scalar: {tensor}")
+        rows.append((step - (1 << 64) if step >> 63 else step,
+                     v[1][0].decode(), tensor[4][0],
+                     proto_fields(meta[1][0])[1][0].decode(), meta[4][0]))
+    return first[3][0].decode(), rows
+
+
+def batch_sha256(batch: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode() + str(batch[k].dtype).encode()
+                 + str(batch[k].shape).encode() + batch[k].tobytes())
+    return h.hexdigest()
+
+
+def leftovers_phase(cfg, dev, card: str) -> dict:
+    """Phase 27: ``make_grain_loader`` at 4 workers against 0 (batch
+    hashes, img/s), 10 ``train_step`` calls on its batches from the
+    snapshot with each step's terms through ``MetricLogger(tensorboard=
+    True)``, the event file read back by ``read_tfrecords``, and
+    ``num_params`` of the model."""
+    from ppn_tpu_torch.data.pipeline import make_grain_loader
+    from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from ppn_tpu_torch.nn import num_params
+    from ppn_tpu_torch.ops import cuda_warp
+    from ppn_tpu_torch.train import steps as st
+    from ppn_tpu_torch.utils.logging import MetricLogger
+    from ppn_tpu_torch.utils.params_io import load_npz_into_train_state
+
+    tcfg = constant_lr(cfg)
+    B = tcfg.train.batch_size
+    ds = SyntheticPoseDataset(tcfg, size=PARITY_IMAGES, seed=0)
+    epochs = PARITY_STEPS * B // PARITY_IMAGES
+    loads = {}
+    for workers in (PARITY_WORKERS, 0):
+        t0 = time.perf_counter()
+        batches = list(make_grain_loader(ds, B, seed=0, num_workers=workers,
+                                         num_epochs=epochs))
+        loads[workers] = (batches, time.perf_counter() - t0)
+    hashes = {w: [batch_sha256(b) for b in v[0]] for w, v in loads.items()}
+    batches = loads[PARITY_WORKERS][0]
+    img_s = {w: len(v[0]) * B / v[1] for w, v in loads.items()}
+    del loads
+    state = load_npz_into_train_state(
+        tcfg, SNAPSHOT, st.create_train_state(tcfg, device=dev))
+    d = tempfile.mkdtemp(prefix="leftovers_", dir=os.path.join(ROOT, "build"))
+    try:
+        logger = MetricLogger(d, stdout=False, tensorboard=True)
+        logged, ms = [], []
+        torch.cuda.synchronize(dev)
+        cuda_warp.LAUNCHES = 0
+        for step, batch in enumerate(batches, 1):
+            t0 = time.perf_counter()
+            terms = st.train_step(tcfg, state, batch, augment=True)
+            terms = {k: float(v) for k, v in terms.items()}
+            ms.append(1e3 * (time.perf_counter() - t0))
+            logger.log(step, terms)
+            logged.append(terms)
+        launches = cuda_warp.LAUNCHES
+        logger.close()
+        (path,) = [os.path.join(r, f) for r, _, fs in os.walk(d) for f in fs
+                   if f.startswith("events.out.tfevents.")]
+        payloads = read_tfrecords(path)
+        version, rows = scalar_events(payloads)
+        want = [(step, k, np.float32(v).tobytes(), "scalars", 1)
+                for step, terms in enumerate(logged, 1)
+                for k, v in terms.items()]
+        rel = os.path.relpath(path, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out = {"hashes_equal": hashes[PARITY_WORKERS] == hashes[0],
+           "batches": len(batches), "first_batch_sha256": hashes[0][0],
+           "warp_launches": launches, "event_file": rel,
+           "records": len(payloads),
+           "records_expected": 1 + sum(len(t) for t in logged),
+           "file_version": version, "events_equal": rows == want,
+           "num_params": num_params(state.model),
+           "finite": all(math.isfinite(v) for t in logged
+                         for v in t.values()),
+           "loss_total": [t["loss_total"] for t in logged],
+           "loader_img_per_s": {str(w): v for w, v in img_s.items()},
+           "step_ms_median": statistics.median(ms), "step_ms_all": ms}
+    log(f"[leftovers] make_grain_loader over {PARITY_IMAGES} synthetic "
+        f"images, B={B}, {epochs} epochs: {len(batches)} batches, sha256 at "
+        f"{PARITY_WORKERS} workers equal to 0 workers {out['hashes_equal']};"
+        f" loader img/s (worker start included) {PARITY_WORKERS} workers "
+        f"{img_s[PARITY_WORKERS]:.1f}, 0 workers {img_s[0]:.1f} | {card}")
+    log(f"[leftovers] {PARITY_STEPS} train_step calls (bf16, augmentation, "
+        f"from the snapshot) on those batches: ppn_warp_kernel launches "
+        f"{launches}, loss_total {out['loss_total'][0]:.4f} → "
+        f"{out['loss_total'][-1]:.4f}, median step {out['step_ms_median']:.3f}"
+        f" ms (host clock, terms read back each step) | {card}")
+    log(f"[leftovers] {rel}: {out['records']} records (expected "
+        f"{out['records_expected']}), every CRC checked, file_version "
+        f"{version!r}, every event the logged term as f32 "
+        f"{out['events_equal']}; num_params {out['num_params']} (pinned "
+        f"{MPII_R18_384_PARAMS})")
+    if (not out["hashes_equal"] or len(batches) != PARITY_STEPS
+            or launches != PARITY_STEPS or not out["finite"]
+            or out["records"] != out["records_expected"]
+            or version != "brain.Event:2" or not out["events_equal"]
+            or out["num_params"] != MPII_R18_384_PARAMS):
+        raise AssertionError(f"parity leftovers: {out}")
+    return out
+
+
 def main() -> int:
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2331,7 +2537,10 @@ def main() -> int:
     # ---- 26. the benchmark suite and the headline ---------------------------
     bench = bench_phase(card)
 
-    # ---- 27. report ---------------------------------------------------------
+    # ---- 27. parity leftovers: loader workers, TensorBoard, num_params ------
+    leftovers = leftovers_phase(cfg, dev, card)
+
+    # ---- 28. report ---------------------------------------------------------
     k_ms, p_ms, bound, whole, eager_ms, call_us = times[B]
     k1_ms, p1_ms, bound1, whole1, eager1_ms, call1_us = times[1]
     log(json.dumps({"serving_slice": {
@@ -2353,6 +2562,7 @@ def main() -> int:
     log(json.dumps({"eleventh_slice": {
         "native_decode": native, "k_step": kstep, "sharded_cache": sharded}}))
     log(json.dumps({"bench_suite": bench}))
+    log(json.dumps({"parity_leftovers": leftovers}))
     log(card)   # the nvidia-smi name,power.limit line, as it prints it
     log(json.dumps({"kernels": [{
         "name": "ppn_post_kernel", "route": "cuda",
@@ -2411,6 +2621,7 @@ def main() -> int:
             sharded[f"rank{r}"]["launches"] for r in (0, 1)],
         "launches_bench_suite": {k: v[1] for k, v in bench["launches"].items()
                                  if v[1]},
+        "launches_parity_leftovers": leftovers["warp_launches"],
         "ms_b128": w128_ms, "plain_ms_b128": wp128_ms,
         "bound_ms_b128": w128_bound,
     }]}))

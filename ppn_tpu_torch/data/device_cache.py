@@ -117,7 +117,9 @@ class DeviceCache:
         rank packs the rows of ``idx`` it holds (in order, padded to the
         largest owner's count) into one uint8 tensor of their bytes, one
         all_gather brings every rank's to every rank, and this rank unpacks
-        the rows of its slice. Bytes are copied, never summed."""
+        the rows of its slice. Bytes are copied, never summed. The fields
+        are packed in the order of their names, which every rank shares
+        whatever order its own dict was filled in."""
         world, rank = self.mesh.size(self.axis), self.mesh.rank(self.axis)
         per = len(next(iter(self.data.values())))
         owner = idx // per
@@ -127,26 +129,28 @@ class DeviceCache:
             at = np.flatnonzero(owner == o)
             slot[at], counts[o] = np.arange(len(at)), len(at)
         held = self._take(idx[owner == rank] - rank * per)
-        widths = [math.prod(v.shape[1:]) * v.element_size()
-                  for v in self.data.values()]
+        names = sorted(self.data)
+        widths = [math.prod(self.data[k].shape[1:])
+                  * self.data[k].element_size() for k in names]
         m = int(counts.max())
         packed = torch.zeros((m, sum(widths)), dtype=torch.uint8,
                              device=self.device)
         if counts[rank]:
             packed[:int(counts[rank])] = torch.cat(
-                [v.reshape(len(v), -1).view(torch.uint8)
-                 for v in held.values()], 1)
+                [held[k].reshape(len(held[k]), -1).view(torch.uint8)
+                 for k in names], 1)
         parts = [torch.empty_like(packed) for _ in range(world)]
         dist.all_gather(parts, packed, group=group)
         flat = torch.stack(parts).reshape(world * m, -1)
         at = torch.as_tensor(owner[mine] * m + slot[mine], device=self.device)
         rows = flat.index_select(0, at)
         out, col = {}, 0
-        for (k, v), width in zip(self.data.items(), widths):
+        for k, width in zip(names, widths):
+            v = self.data[k]
             out[k] = rows[:, col:col + width].clone().view(
                 v.dtype).reshape(len(rows), *v.shape[1:])
             col += width
-        return out
+        return {k: out[k] for k in self.data}
 
     def epoch_shuffled_batches(self, batch_size: int, *, seed: int = 0
                                ) -> Iterator[Dict[str, torch.Tensor]]:

@@ -216,13 +216,14 @@ class SyntheticPoseDataset:
         crowding and ``image_uint8``, and by this package's name, so the
         JAX package's entries (same config repr) are never read here. It is
         written into a temporary directory, marked ``_complete`` and
-        renamed into place; a hit is loaded read-only through ``mmap``."""
+        renamed into place; a hit is loaded read-only through ``mmap``, its
+        fields in ``collate``'s order, as a miss returns them."""
         import hashlib
         import os
         import shutil
         import tempfile
 
-        from ppn_tpu_torch.data.pipeline import collate
+        from ppn_tpu_torch.data.pipeline import _BATCH_KEYS, collate
 
         root = os.environ.get("PPN_SYNTH_CACHE", os.path.join(
             tempfile.gettempdir(), "ppn_synth_cache"))
@@ -236,8 +237,9 @@ class SyntheticPoseDataset:
         )).encode()).hexdigest()[:16]
         path = os.path.join(root, key)
         if os.path.exists(os.path.join(path, "_complete")):
-            return {f[:-4]: np.load(os.path.join(path, f), mmap_mode="r")
-                    for f in sorted(os.listdir(path)) if f.endswith(".npy")}
+            # collate's fields in its order, as a miss returns them
+            return {k: np.load(os.path.join(path, f"{k}.npy"), mmap_mode="r")
+                    for k in _BATCH_KEYS}
         host = collate([self[i] for i in range(self.size)],
                        image_uint8=image_uint8)
         tmp = f"{path}.tmp-{os.getpid()}"

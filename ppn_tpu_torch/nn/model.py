@@ -65,3 +65,10 @@ class PoseProposalNet(nn.Module):
         # NHWC → NCHW view: the memory stays channels_last for cuDNN
         f = self.backbone(x.to(self.dtype).permute(0, 3, 1, 2))
         return self.head(f).permute(0, 2, 3, 1).to(torch.float32).contiguous()
+
+
+def num_params(model: nn.Module) -> int:
+    """The number of trainable values, as the JAX function counts its
+    ``nnx.Param``s: BatchNorm's running statistics (buffers here) are not
+    parameters. A model built on the meta device costs no memory."""
+    return sum(p.numel() for p in model.parameters())

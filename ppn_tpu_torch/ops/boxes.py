@@ -6,6 +6,17 @@ from __future__ import annotations
 import torch
 
 
+def box_area(wh: torch.Tensor) -> torch.Tensor:
+    """Area from a trailing-dim-2 (w, h) tensor."""
+    return wh[..., 0] * wh[..., 1]
+
+
+def cxcywh_to_tlbr(boxes: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, w, h) → (x0, y0, x1, y1)."""
+    cx, cy, w, h = boxes.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
 def iou_cxcywh(a: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-9) -> torch.Tensor:
     """Elementwise IoU of broadcast-compatible center-format boxes, in the
@@ -24,6 +35,11 @@ def iou_cxcywh(a: torch.Tensor, b: torch.Tensor,
     inter = iw * ih
     union = (ax1 - ax0) * (ay1 - ay0) + (bx1 - bx0) * (by1 - by0) - inter
     return inter / torch.clamp_min(union, eps)
+
+
+def pairwise_iou_cxcywh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All-pairs IoU: a (..., N, 4) × b (..., M, 4) → (..., N, M)."""
+    return iou_cxcywh(a[..., :, None, :], b[..., None, :, :])
 
 
 def pairwise_overlap_above_cxcywh(a: torch.Tensor, b: torch.Tensor,

@@ -134,6 +134,15 @@ def encode_batch(cfg: PPNConfig, keypoints: torch.Tensor,
     return TargetGrids(delta=delta, tx=tx, ty=ty, tw=tw, th=th, te=te)
 
 
+def encode_single(cfg: PPNConfig, keypoints, visible, bboxes,
+                  valid) -> TargetGrids:
+    """One image's GT (arrays or tensors without the batch dimension) as
+    target grids without it: ``encode_batch`` on a batch of one."""
+    one = encode_batch(cfg, *(torch.as_tensor(x)[None] for x in (
+        keypoints, visible, bboxes, valid)))
+    return TargetGrids(*(t[0] for t in one))
+
+
 def targets_to_feature_map(cfg: PPNConfig, t: TargetGrids) -> torch.Tensor:
     """A pre-activation feature map that decodes back to the targets: every
     GT box at its responsible cell with score ≈ 1 (the round-trip oracle of

@@ -81,3 +81,28 @@ def nms_single(cfg: PPNConfig, props: Proposals) -> NMSResult:
     """NMS for one image: props without the batch dimension."""
     one = nms_batch(cfg, Proposals(props.boxes[None], props.score[None]))
     return NMSResult(one.keep[0], one.score[0])
+
+
+def nms_single_scan(cfg: PPNConfig, props: Proposals) -> NMSResult:
+    """The sequential greedy rule itself, for one image: per class, walk
+    the proposals from the highest score down (ties by lower cell index)
+    and keep each one above the detection threshold that no kept earlier
+    one overlaps above ``nms_thresh``. The cross-check oracle of the wave
+    fixpoint, as the JAX package keeps it; N steps, not for speed."""
+    K1 = cfg.num_classes
+    N = cfg.outsize[0] * cfg.outsize[1]
+    score = props.score.reshape(N, K1).T                       # (K1, N)
+    boxes = props.boxes.reshape(N, K1, 4).transpose(0, 1)      # (K1, N, 4)
+    order = torch.argsort(-score, dim=-1, stable=True)         # high → low
+    s_sorted = torch.take_along_dim(score, order, dim=-1)
+    b_sorted = torch.take_along_dim(boxes, order[..., None], dim=1)
+    overlap = boxops.pairwise_overlap_above_cxcywh(b_sorted, b_sorted,
+                                                   cfg.nms_thresh)
+    above = s_sorted > cfg.detection_thresh
+    keep_sorted = torch.zeros_like(above)
+    for i in range(N):
+        sup = (overlap[:, i, :i] & keep_sorted[:, :i]).any(-1)
+        keep_sorted[:, i] = above[:, i] & ~sup
+    keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
+    keep = keep.T.reshape(props.score.shape)
+    return NMSResult(keep=keep, score=torch.where(keep, props.score, 0.0))

@@ -63,6 +63,23 @@ def test_materialize_collated_matches_jax(tmp_path, monkeypatch,
     assert os.listdir(ours) == [entry]
 
 
+def test_memo_hit_lists_its_fields_as_a_miss_does(tmp_path, monkeypatch):
+    """A hit lists the fields in ``collate``'s order, as the miss that
+    wrote it and a run without the memo do (a hit used to list them by
+    file name, and two ranks of one sharded cache, one hit and one render,
+    then unpacked each other's rows in different orders)."""
+    monkeypatch.setenv("PPN_SYNTH_CACHE", str(tmp_path))
+    ds = SyntheticPoseDataset(get_config("tiny_test"), size=2, seed=4)
+    miss = ds.materialize_collated()
+    hit = ds.materialize_collated()
+    monkeypatch.setenv("PPN_SYNTH_CACHE", "0")
+    plain = ds.materialize_collated()
+    assert isinstance(hit["image"], np.memmap)
+    assert list(hit) == list(miss) == list(plain) == [
+        "image", "keypoints", "visible", "bboxes", "valid"]
+    assert list(DeviceCache(ds, device="cpu").data) == list(plain)
+
+
 def test_materialize_collated_needs_the_complete_marker(tmp_path,
                                                         monkeypatch):
     """An entry without ``_complete`` (a writer cut off) is no hit: the set

@@ -269,6 +269,25 @@ def _sharded_cases(mesh, outdir: str) -> dict:
         "cache_nbytes": cache.nbytes()}
     trainer.close()
     steps.close()
+
+    # rank 0 reads the set from the render memo (written just before, so a
+    # hit) while rank 1 renders it without one; then rank 1's fields in
+    # reverse order: every rank packs and unpacks the same bytes anyway
+    memo = os.path.join(outdir, f"memo{mesh.rank()}")
+    saved = os.environ.get("PPN_SYNTH_CACHE")
+    os.environ["PPN_SYNTH_CACHE"] = memo if mesh.rank() == 0 else "0"
+    try:
+        ten.materialize_collated()
+        mixed = DeviceCache(ten, device="cpu", mesh=mesh)
+    finally:
+        if saved is None:
+            del os.environ["PPN_SYNTH_CACHE"]
+        else:
+            os.environ["PPN_SYNTH_CACHE"] = saved
+    out["memo_mixed"] = [mixed.batch(b) for b in SHARDED_BLOCKS]
+    if mesh.rank() == 1:
+        mixed.data = dict(reversed(mixed.data.items()))
+    out["reordered"] = [mixed.batch(b) for b in SHARDED_BLOCKS]
     return out
 
 
@@ -458,6 +477,21 @@ def test_two_ranks_sharded_gathers_are_the_replicated_caches(two_ranks):
                         device="cpu").batch(SHARDED_BLOCKS[0])
     assert torch.equal(torch.cat([res["sharded"]["gathered"][0]["image"]
                                   for res in ranks]), whole["image"])
+
+
+@pytest.mark.parametrize("case", ["memo_mixed", "reordered"])
+def test_two_ranks_gather_whatever_each_ranks_field_order(two_ranks, case):
+    """The gathered slices stay the replicated cache's when one rank read
+    the render memo and the other rendered the set (a memo hit used to
+    list its fields in file-name order, a render in ``collate``'s, and each
+    rank unpacked the other's bytes in its own order: image bytes came back
+    as boxes), and when one rank's fields are in reverse order."""
+    ranks, _, _ = two_ranks
+    for res in ranks:
+        for g, w in zip(res["sharded"][case], res["sharded"]["replicated"]):
+            assert g.keys() == w.keys()
+            for k in w:
+                assert g[k].dtype == w[k].dtype and torch.equal(g[k], w[k]), k
 
 
 def test_two_ranks_k_step_loop_on_the_sharded_cache(two_ranks):
