@@ -214,9 +214,55 @@ Phases, each raising on failure:
                with the scalars plugin; ``nn.num_params`` of the model
                equal to the JAX package's count for mpii_r18_384, which
                tests/test_torch_leftovers.py pins;
-28. report  — the serving, evaluation, file-input, ninth, eleventh,
-               benchmark and parity-leftover slices' numbers, the kernels
-               line, then the device line last.
+28. model family — the rest of the JAX package's models at full width:
+               ``ppn_post_kernel`` against its plain version on
+               mpii_r18_224_fast's 7×7 grid (B=1, 32, 128 on the seeded
+               kinds, ``empty``, ``chain``, the NaN window case; phase 3's
+               limits) and ``ppn_warp_kernel`` bitwise at 224², B=32, bf16
+               and f32, each timed (CUDA graph) against its bound beside
+               phases 6 and 17; the eval forwards of mpii_r50_384,
+               mpii_r18_384 with ``backbone="resnet34"`` and
+               mpii_r18_224_fast on the card against the port's CPU path
+               (same seeded weights, B=2): bf16 within 3e-2 and f32 within
+               1e-4 of the largest logit; mpii_r50_384 ``Predictor.predict``
+               on uint8 (128, 384, 384, 3), the median img/s of 20 calls,
+               ``forward_flops`` and ``mfu_pct``, one post launch a call;
+               ``apps/train.main`` on an MPII JPEG tree (32 training images,
+               16 held out) for mpii_r50_384 and for ``--backbone
+               resnet34``, B=32, bf16, augmentation on, 10 steps: finite
+               losses, 10 warp launches, the ``eval:`` line from 2 post
+               launches, the median step; one f32 mpii_r50_384 step on the
+               card against the CPU step from the same state (loss terms
+               within rel 1e-4); a ResNet-50 overfit of phase 16's 8 images
+               from a fresh init (the loss halves in 60 steps), kept as a
+               checkpoint for phase 29; ``--pretrained`` with a seeded
+               torchvision-layout ResNet-50 (phase 21's checks);
+               ``apps/video.main --config mpii_r18_224_fast`` (a seeded
+               init) on 64 synthetic 720p frames at 30 fps: the first
+               frame's decisions equal to the plain pipeline's, one post
+               launch per frame and the warm-up; the phase's time;
+29. accuracy tools — ``tools/torch_oracle_ceiling.py`` (mpii_r18_384, 64
+               images, 2 persons), ``torch_threshold_sweep.py`` (the MPII
+               snapshot, 64 images, det 0.10/0.15/0.20 × nms 0.30/0.45,
+               without and with ``--flip-tta``) and
+               ``torch_crowding_study.py`` (the crowd snapshot on
+               coco_r18_384, protocols 1, 3, 6 and 0 at 32 images, nms
+               0.3/0.45/0.6) through their ``main`` on the card, against
+               the JAX package's values on its CPU at the same arguments
+               (``TOOL_PINS``): oracle ceilings, collision bounds and
+               lost-person fractions equal to their printed decimals,
+               model PCKh within 3e-3 (a point that misses is printed, and
+               the tool runs again in f32 against the JAX package's f32
+               values, where every point must be within 3e-3), post
+               launches as the code implies (one per point and map set);
+               ``torch_export_snapshot.py`` of phase 28's overfit
+               checkpoint, reloaded by ``Predictor.from_npz``: its logits
+               bitwise those of the in-memory eval model with parameters
+               and statistics rounded through f16 (cuDNN's deterministic
+               algorithms); the phase's time;
+30. report  — the serving, evaluation, file-input, ninth, eleventh,
+               benchmark, parity-leftover, model-family and tool numbers,
+               the kernels line, then the device line last.
 
 Launch counts are set to 0 just before each path (phase 5 for inference,
 7 for TTA, 8 for each evaluation and CLI run, 9 for each CLI run on files,
@@ -225,8 +271,9 @@ one-rank run and its evaluation, 19 in each rank and in the one process
 before its steps, 20 before the exported call, 23 before the evaluate and
 video CLIs, 24 before the K-step call, 25 in each rank and in the one
 process before its Trainer runs, 26 before each suite config, 27 before
-its steps) and read just after it; comparison and timing launches fall
-outside those windows.
+its steps, 28 before the ResNet-50 predicts, each train CLI and the video
+CLI, 29 before each tool run) and read just after it; comparison and
+timing launches fall outside those windows.
 """
 
 from __future__ import annotations
@@ -338,6 +385,54 @@ MPII_R18_384_PARAMS = 14_254_006
 WARP_CASES = [(0.0, 1.0, 0.0, False), (0.3, 1.1, 12.0, False),
               (-0.5, 0.8, -7.0, False), (0.7, 1.25, 3.0, True),
               (0.69, 3.9, 50.0, False), (-0.69, 0.26, -120.0, True)]
+# phase 28: the family's forwards held card against CPU, (config, backbone)
+FAMILY_FORWARDS = (("mpii_r50_384", None), ("mpii_r18_384", "resnet34"),
+                   ("mpii_r18_224_fast", None))
+BF16_TOL = 3e-2          # tests/test_torch_model.py's bf16 logit tolerance
+FAMILY_F32_TOL = 1e-4    # f32 with TF32 off: cuDNN may choose FFT or
+                         # Winograd algorithms, whose error exceeds a direct
+                         # sum's; 5× the JAX-vs-port F32_TOL over ResNet-50's
+                         # 53 convs, and phase 13's limit on a step's terms
+FAMILY_TRAIN_IMAGES, FAMILY_STEPS = 32, 10
+# phase 29: the tools' sizes, and the JAX package's values on its CPU at
+# exactly phase 29's arguments (tools/oracle_ceiling.py,
+# tools/threshold_sweep.py, tools/crowding_study.py; "f32": the same runs
+# with the config's train.dtype set to float32 in ppn_tpu.configs.get_config,
+# which the port equals exactly on its CPU). Sweep points are "det/nms",
+# crowding points "protocol@nms"; "exact" is each protocol's collision
+# bound, lost-person fraction and oracle ceilings at nms 0.3/0.45/0.6.
+TOOL_SWEEP_IMAGES, TOOL_CROWD_IMAGES = 64, 32
+TOOL_TOLERANCE = 3e-3    # about one joint in 378
+TOOL_PINS = {
+    "oracle": ("mpii_r18_384", 64, 2, "0.9940"),
+    "sweep": {
+        "bf16": {"0.1/0.3": 0.988, "0.1/0.45": 0.988, "0.15/0.3": 0.988,
+                 "0.15/0.45": 0.988, "0.2/0.3": 0.986, "0.2/0.45": 0.986},
+        "f32": {"0.1/0.3": 0.988, "0.1/0.45": 0.988, "0.15/0.3": 0.988,
+                "0.15/0.45": 0.988, "0.2/0.3": 0.986, "0.2/0.45": 0.986}},
+    "sweep_tta": {
+        "bf16": {"0.1/0.3": 0.9873, "0.1/0.45": 0.9933, "0.15/0.3": 0.9873,
+                 "0.15/0.45": 0.9933, "0.2/0.3": 0.9867, "0.2/0.45": 0.9927},
+        "f32": {"0.1/0.3": 0.988, "0.1/0.45": 0.994, "0.15/0.3": 0.988,
+                "0.15/0.45": 0.994, "0.2/0.3": 0.9873, "0.2/0.45": 0.9933}},
+    "crowd": {
+        "exact": {"1_person": [1.0, 0.0, 1.0, 1.0, 1.0],
+                  "3_person": [1.0, 0.0, 0.964, 0.9869, 0.9967],
+                  "6_person": [0.9795, 0.0156, 0.833, 0.9323, 0.9545],
+                  "random_1_to_12": [0.9329, 0.0625, 0.742, 0.8161, 0.8636]},
+        "bf16": {"1_person@0.3": 0.9929, "1_person@0.45": 0.9929,
+                 "1_person@0.6": 0.9929, "3_person@0.3": 0.9419,
+                 "3_person@0.45": 0.9714, "3_person@0.6": 0.9714,
+                 "6_person@0.3": 0.7883, "6_person@0.45": 0.8757,
+                 "6_person@0.6": 0.8954, "random_1_to_12@0.3": 0.6654,
+                 "random_1_to_12@0.45": 0.7273, "random_1_to_12@0.6": 0.7636},
+        "f32": {"1_person@0.3": 0.9929, "1_person@0.45": 0.9929,
+                "1_person@0.6": 0.9929, "3_person@0.3": 0.9419,
+                "3_person@0.45": 0.9714, "3_person@0.6": 0.9714,
+                "6_person@0.3": 0.7895, "6_person@0.45": 0.8789,
+                "6_person@0.6": 0.9027, "random_1_to_12@0.3": 0.665,
+                "random_1_to_12@0.45": 0.7252, "random_1_to_12@0.6": 0.7633}},
+}
 
 
 def log(msg: str) -> None:
@@ -776,34 +871,39 @@ def timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def pretrained_phase() -> dict:
-    """Phase 21: ``apps/train.main --pretrained`` on the card with a
-    torchvision-key state dict made at run time from a seeded port
-    ResNet-18 (with the ``fc`` and ``num_batches_tracked`` entries
-    torchvision files carry, which the loader drops). ``--steps 0`` writes
-    the state before the first step, whose backbone must equal the file;
-    ``--steps 2`` then resumes from it and must log finite losses."""
+def pretrained_phase(name: str = "mpii_r18_384") -> dict:
+    """Phase 21 (and phase 28 for ``mpii_r50_384``): ``apps/train.main
+    --pretrained`` on the card with a torchvision-key state dict made at
+    run time from a seeded port backbone of the config's kind (with the
+    ``fc`` and ``num_batches_tracked`` entries torchvision files carry,
+    which the loader drops). ``--steps 0`` writes the state before the
+    first step, whose backbone must equal the file; ``--steps 2`` then
+    resumes from it and must log finite losses."""
     from ppn_tpu_torch.apps import train as train_app
-    from ppn_tpu_torch.nn.resnet import resnet18
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.nn import resnet
     from ppn_tpu_torch.utils.torch_import import torchvision_state_dict
 
+    make = getattr(resnet, get_config(name).model.backbone)
     torch.manual_seed(7)
-    sd = torchvision_state_dict(resnet18())
-    sd["fc.weight"], sd["fc.bias"] = torch.randn(1000, 512), torch.zeros(1000)
+    bb = make()
+    sd = torchvision_state_dict(bb)
+    sd["fc.weight"] = torch.randn(1000, bb.out_features)
+    sd["fc.bias"] = torch.zeros(1000)
     for k in [k for k in sd if k.endswith("running_var")]:
         sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
     d = tempfile.mkdtemp(prefix="pretrained_", dir=os.path.join(ROOT, "build"))
     try:
-        path = os.path.join(d, "resnet18.pth")
+        path = os.path.join(d, "backbone.pth")
         torch.save(sd, path)
-        argv = ["--config", "mpii_r18_384", "--overfit", "8", "--batch-size",
+        argv = ["--config", name, "--overfit", "8", "--batch-size",
                 "8", "--ckpt-dir", os.path.join(d, "ckpt"), "--log-dir", d,
                 "--pretrained", path, "--device", "cuda",
                 "--set", "train.log_every=1"]
         quiet_call(train_app.main, argv + ["--steps", "0"])
         model = torch.load(os.path.join(d, "ckpt", "ckpt_00000000.pt"),
                            weights_only=True)["model"]
-        bb = resnet18()
+        bb = make()
         bb.load_state_dict({k[len("backbone."):]: v for k, v in model.items()
                             if k.startswith("backbone.")})
         got = torchvision_state_dict(bb)
@@ -1821,6 +1921,521 @@ def leftovers_phase(cfg, dev, card: str) -> dict:
     return out
 
 
+def post_kernel_cases_7x7(dev) -> tuple[int, float]:
+    """Phase 28, part 1: ppn_post_kernel against its plain version on
+    mpii_r18_224_fast's 7×7 grid (its 9×9 window reaches past the grid from
+    every cell) at B=1, 32 and 128 on the seeded kinds, the ``empty`` and
+    ``chain`` edge maps and the NaN window case. Returns the worst ulp and
+    absolute error."""
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.ops import cuda_post
+    from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
+    from ppn_tpu_torch.testing import KINDS, feature_map_case, nan_window_case
+
+    m = get_config("mpii_r18_224_fast").model
+    cases = [(B, kind) for B in (1, 32, 128) for kind in KINDS]
+    cases += [(8, "empty"), (8, "chain")]
+    worst_ulp, worst_err = 0, 0.0
+    for B, kind in cases:
+        fm = torch.from_numpy(feature_map_case(m, B, seed=B, kind=kind))
+        fm = fm.to(dev)
+        got = cuda_post.postprocess_batch_cuda(m, fm)
+        want = postprocess_batch_plain(m, fm)
+        equal, ulp, err = compare(got, want)
+        worst_ulp, worst_err = max(worst_ulp, ulp), max(worst_err, err)
+        log(f"[family] ppn_post_kernel 7x7 B={B} {kind}: decisions_equal="
+            f"{equal} max_ulp={ulp} max_abs_err={err:.3g} persons="
+            f"{int(want.valid.sum())}")
+        if not equal or ulp > ULP_LIMIT:
+            raise AssertionError(f"kernel disagrees at 7x7: B={B} {kind}")
+    fm = torch.from_numpy(nan_window_case(m)).to(dev)
+    got = cuda_post.postprocess_batch_cuda(m, fm)
+    equal, ulp, err = compare(got, postprocess_batch_plain(m, fm))
+    d = m.edges[next(i for i, (s, _) in enumerate(m.edges) if s == 0)][1]
+    cell, score = got.kp_cell[0, 0, d].tolist(), float(got.kp_score[0, 0, d])
+    log(f"[family] ppn_post_kernel 7x7 NaN window case: decisions_equal="
+        f"{equal} max_ulp={ulp}; slot 0 class {d}: cell {cell} score {score}")
+    if not equal or ulp > ULP_LIMIT or cell != [0, 0] or score != 0.0:
+        raise AssertionError("kernel disagrees at 7x7: NaN window case")
+    return worst_ulp, worst_err
+
+
+def family_forwards(dev) -> dict:
+    """Phase 28, part 3: each family model's eval forward on the card
+    against the port's CPU path, the same seeded weights on both, on two
+    seeded uint8 images: bf16 within BF16_TOL and f32 within FAMILY_F32_TOL
+    of the largest CPU logit."""
+    import copy
+
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.nn.model import DTYPES, PoseProposalNet
+
+    out = {}
+    for name, backbone in FAMILY_FORWARDS:
+        cfg = get_config(name)
+        if backbone:
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, backbone=backbone))
+        images = torch.from_numpy(np.random.default_rng(28).integers(
+            0, 256, (2, *cfg.model.insize, 3), dtype=np.uint8))
+        label = f"{name}" + (f"+{backbone}" if backbone else "")
+        for dtype, tol in (("bfloat16", BF16_TOL), ("float32",
+                                                    FAMILY_F32_TOL)):
+            torch.manual_seed(28)
+            cpu = PoseProposalNet(cfg.model, dtype=DTYPES[dtype]).eval()
+            card_model = copy.deepcopy(cpu).to(dev)
+            with torch.no_grad():
+                want = cpu(images)
+                got = card_model(images.to(dev)).cpu()
+            scale = float(want.abs().max())
+            rel = float((got - want).abs().max()) / scale
+            out[f"{label}_{dtype}"] = {"rel_to_max_logit": rel,
+                                       "max_logit": scale, "limit": tol}
+            log(f"[family] {label} {dtype} forward, card vs CPU, B=2: max "
+                f"|Δ| {rel:.3g} of the largest logit {scale:.4g} (limit "
+                f"{tol})")
+            if not (math.isfinite(rel) and rel <= tol):
+                raise AssertionError(f"{label} {dtype}: card and CPU forwards"
+                                     f" differ by {rel} of the largest logit")
+            del cpu, card_model
+    return out
+
+
+def family_training_cli(root: str, card: str) -> dict:
+    """Phase 28, part 5: ``apps/train.main`` at B=32, bf16, augmentation on,
+    FAMILY_STEPS steps from a fresh init on an MPII JPEG tree
+    (FAMILY_TRAIN_IMAGES training images, 16 held-out ones to evaluate),
+    for ``mpii_r50_384`` and for ``mpii_r18_384 --backbone resnet34``."""
+    import re
+
+    from ppn_tpu_torch.apps import train
+    from ppn_tpu_torch.ops import cuda_post, cuda_warp
+
+    out = {}
+    for label, extra in (("mpii_r50_384", ["--config", "mpii_r50_384"]),
+                         ("mpii_r18_384+resnet34", [
+                             "--config", "mpii_r18_384", "--backbone",
+                             "resnet34"])):
+        ck = os.path.join(root, f"ckpt_{label}")
+        cuda_post.LAUNCHES = cuda_warp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, printed = quiet_call(train.main, extra + [
+            "--data", "mpii", "--data-root", os.path.join(root, "files"),
+            "--batch-size", "32", "--steps", str(FAMILY_STEPS),
+            "--no-resume", "--ckpt-dir", ck, "--log-dir", ck,
+            "--set", "train.log_every=1"])
+        wall = time.perf_counter() - t0
+        warp, post = cuda_warp.LAUNCHES, cuda_post.LAUNCHES
+        with open(os.path.join(ck, "train_metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        losses = [r["loss_total"] for r in logged if "loss_total" in r]
+        step_ms = [1e3 * 32 / r["images_per_sec"] for r in logged
+                   if "images_per_sec" in r]
+        # the printed dict's values may be numpy scalars: np.float64(0.97)
+        evals = [float(m.group(1)) for m in re.finditer(
+            r"^eval: .*'pckh/mean': (?:np\.float64\()?([-\d.e]+)", printed,
+            re.M)]
+        out[label] = {"losses": losses, "warp_launches": warp,
+                      "post_launches": post,
+                      "step_ms_median": statistics.median(step_ms),
+                      "eval_pckh": evals[0] if evals else None,
+                      "cli_s": wall}
+        log(f"[family] train CLI {label}, B=32 bf16 with augmentation, "
+            f"{FAMILY_STEPS} steps from a fresh init on "
+            f"{FAMILY_TRAIN_IMAGES} JPEGs: loss_total "
+            f"{[round(v, 4) for v in losses]}; ppn_warp_kernel launches "
+            f"{warp}; eval: PCKh {out[label]['eval_pckh']} (a fresh init "
+            f"after {FAMILY_STEPS} steps) from {post} ppn_post_kernel "
+            f"launches; median step {out[label]['step_ms_median']:.3f} ms "
+            f"(host clock between the per-step logs; {wall:.1f} s with "
+            f"set-up) | {card}")
+        if (len(losses) != FAMILY_STEPS or warp != FAMILY_STEPS or post != 2
+                or not all(math.isfinite(v) for v in losses)
+                or len(evals) != 1 or not math.isfinite(evals[0])):
+            raise AssertionError(f"train CLI {label}: {out[label]}")
+    return out
+
+
+def family_phase(images: np.ndarray, fixed: dict, earlier: dict,
+                 card: str) -> dict:
+    """Phase 28: the rest of the model family on the card at full width —
+    the post kernel at 7×7 and the warp kernel at 224² against their plain
+    versions and timed; ResNet-34/50 and the 224² forwards against the
+    port's CPU path; ``mpii_r50_384`` inference (B=128, ``images``) and
+    training (the train CLI, an f32 step against the CPU, an overfit of
+    the 8 ``fixed`` images, ``--pretrained``); the ResNet-34 train CLI;
+    video at 224². ``earlier`` holds phases 6, 12 and 17's numbers to print
+    beside these. Returns the numbers and, under ``overfit_ckpt``, a
+    checkpoint directory of the ResNet-50 overfit state (phase 29 exports
+    it, then deletes it)."""
+    from ppn_tpu_torch.apps import video
+    from ppn_tpu_torch.bench.suite import forward_flops, peak_bf16_tflops
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.data.device_cache import DeviceCache
+    from ppn_tpu_torch.data.synthetic import (SyntheticPoseDataset,
+                                              heldout_dataset)
+    from ppn_tpu_torch.inference import Predictor
+    from ppn_tpu_torch.ops import cuda_post, cuda_warp
+    from ppn_tpu_torch.ops.image import (affine_warp_separable_plain,
+                                         resize_bilinear)
+    from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
+    from ppn_tpu_torch.testing import feature_map_case, write_mpii_set
+    from ppn_tpu_torch.train import steps as st
+    from ppn_tpu_torch.train.checkpoint import Checkpointer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {}
+
+    # 1. the post kernel at 7×7
+    out["post_max_ulp"], out["post_max_abs_err"] = post_kernel_cases_7x7(dev)
+
+    # 2. the warp kernel at 224², bitwise; both kernels timed there
+    fast = get_config("mpii_r18_224_fast")
+    rng = np.random.default_rng(224)
+    x224 = torch.from_numpy(rng.random((32, 224, 224, 3), np.float32)).to(dev)
+    mats = warp_matrices(fast, 32, dev, seed=224)
+    warp_err = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        x = x224.to(dt)
+        got = cuda_warp.affine_warp_cuda(x, mats)
+        want = affine_warp_separable_plain(x, mats)
+        d = (got.float() - want.float()).abs()
+        warp_err = max(warp_err, float(d.max()))
+        log(f"[family] ppn_warp_kernel 224x224x3 B=32 {str(dt)[6:]}: "
+            f"differing values {int((d > 0).sum())} of {d.numel()}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"ppn_warp_kernel differs from its plain "
+                                 f"version at 224² {dt}")
+    xw = x224.to(torch.bfloat16)
+    wcall = functools.partial(cuda_warp.affine_warp_cuda, xw, mats)
+    out["warp"] = {"ms": graph_ms(wcall, 50), "bound_ms": warp_bound_ms(xw),
+                   "plain_ms": time_ms(
+                       lambda: affine_warp_separable_plain(xw, mats), 5),
+                   "max_abs_err": warp_err}
+    log(f"[family] B=32 224x224x3 bf16: ppn_warp_kernel "
+        f"{out['warp']['ms']:.4f} ms (CUDA graph of 50 launches), plain "
+        f"{out['warp']['plain_ms']:.3f} ms, bound "
+        f"{out['warp']['bound_ms']:.6f} ms (bytes); at 384² (phase 17) "
+        f"{earlier['warp_ms']:.4f} ms, bound {earlier['warp_bound_ms']:.6f}"
+        f" ms | {card}")
+    fpred = Predictor.from_checkpoint(fast, None)   # the seeded init
+    m = fast.model
+    out["post"] = {}
+    images224 = torch.from_numpy(rng.integers(0, 256, (128, 224, 224, 3),
+                                              dtype=np.uint8)).to(dev)
+    for b in (1, 128):
+        with torch.no_grad():
+            main_map = fpred.model(images224[:b])
+        for kind, fm in (("main", main_map), ("normal", torch.from_numpy(
+                feature_map_case(m, b, seed=b)).to(dev))):
+            call = functools.partial(cuda_post.postprocess_batch_cuda, m, fm)
+            rec = {"ms": graph_ms(call, 50),
+                   "plain_ms": time_ms(
+                       lambda: postprocess_batch_plain(m, fm), 5),
+                   "bound_ms": kernel_bound_ms(m, fm),
+                   "bound_ms_whole_map": whole_map_bound_ms(m, b)}
+            out["post"][f"{kind}_b{b}"] = rec
+            log(f"[family] 7x7 {kind} map B={b}: ppn_post_kernel "
+                f"{rec['ms']:.4f} ms (CUDA graph of 50 launches), plain "
+                f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.6f} ms "
+                f"(bytes this map needs; whole map "
+                f"{rec['bound_ms_whole_map']:.6f} ms); 12x12 main-path map "
+                f"(phase 6): {earlier['post_ms'][b]:.4f} ms | {card}")
+
+    # 3. forwards, card against CPU
+    out["forwards"] = family_forwards(dev)
+
+    # 4. inference, mpii_r50_384 at B=128
+    r50 = get_config("mpii_r50_384")
+    pred = Predictor.from_checkpoint(r50, None)
+    calls = 0
+    cuda_post.LAUNCHES = 0
+    for _ in range(3):
+        ppl = pred.predict(images)
+        calls += 1
+    if not all(np.isfinite(getattr(ppl, f)).all() for f in FLOATS):
+        raise AssertionError("non-finite ResNet-50 predictions")
+    ms = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pred.predict(images)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        calls += 1
+    B = images.shape[0]
+    med = statistics.median(ms)
+    flops = forward_flops(r50, 1)
+    ips = 1e3 * B / med
+    out["r50_predict"] = {
+        "ms_median": med, "img_per_s": ips, "forward_gflop_per_image":
+        flops / 1e9, "mfu_pct": flops * ips / (
+            peak_bf16_tflops(dev) * 1e12) * 100.0,
+        "launches": cuda_post.LAUNCHES, "calls": calls}
+    log(f"[family] mpii_r50_384 B={B} predict (seeded init): median "
+        f"{med:.3f} ms over 20 calls = {ips:.1f} img/s, "
+        f"{flops / 1e9:.3f} GFLOP an image (forward_flops), mfu_pct "
+        f"{out['r50_predict']['mfu_pct']:.2f}; ppn_post_kernel launches "
+        f"{cuda_post.LAUNCHES} in {calls} calls; mpii_r18_384 (phase 6): "
+        f"{1e3 * B / earlier['predict_ms']:.1f} img/s | {card}")
+    if cuda_post.LAUNCHES != calls:
+        raise AssertionError(f"{cuda_post.LAUNCHES} post launches in {calls}"
+                             " ResNet-50 predict calls")
+    del pred, ppl
+
+    d = tempfile.mkdtemp(prefix="family_", dir=os.path.join(ROOT, "build"))
+    out["overfit_ckpt"] = os.path.join(d, "overfit_r50")
+    # 5. the train CLI on files: ResNet-50 and ResNet-34
+    mpii = get_config("mpii_r18_384")
+    write_mpii_set(mpii, os.path.join(d, "files"), {
+        "train": (SyntheticPoseDataset(mpii, size=FAMILY_TRAIN_IMAGES,
+                                       seed=0, cache=True, num_persons=2),
+                  FAMILY_TRAIN_IMAGES, 0),
+        "valid": (heldout_dataset(mpii, num_persons=2), 16, 10_000)}, "jpg")
+    out["train_cli"] = family_training_cli(d, card)
+
+    # 6. one f32 ResNet-50 step, card against CPU, from the same state
+    tcfg = dataclasses.replace(r50, train=dataclasses.replace(
+        r50.train, dtype="float32", lr_schedule="constant",
+        warmup_steps=0, ema_decay=0.9))
+    cpu_state = st.create_train_state(tcfg, device="cpu")
+    gpu_state = st.create_train_state(tcfg, device=dev)
+    gpu_state.model.load_state_dict(cpu_state.model.state_dict())
+    batch = DeviceCache(SyntheticPoseDataset(r50, size=2, seed=1),
+                        device="cpu").batch([0, 1])
+    want = st.train_step(tcfg, cpu_state, batch)
+    got = st.train_step(tcfg, gpu_state, batch)
+    rel = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+           for k in want if k.startswith("loss_")}
+    out["f32_step_rel"] = rel
+    log(f"[family] mpii_r50_384 f32 train step, card vs CPU, B=2: worst rel "
+        f"{max(rel.values()):.3g} ({max(rel, key=rel.get)}); grad_norm "
+        f"{float(got['grad_norm']):.6g} vs {float(want['grad_norm']):.6g}")
+    if max(rel.values()) > 1e-4:
+        raise AssertionError(f"ResNet-50 card and CPU steps disagree: {rel}")
+    del cpu_state, gpu_state
+
+    # 7. overfit the 8 fixed images from a fresh init, kept for phase 29
+    ocfg = constant_lr(r50)
+    ostate = st.create_train_state(ocfg, device=dev)
+    curve = [float(st.train_step(ocfg, ostate, fixed)["loss_total"])
+             for _ in range(OVERFIT_STEPS)]
+    tail = statistics.fmean(curve[-10:])
+    out["overfit"] = {"first": curve[0], "last10_mean": tail}
+    log(f"[family] mpii_r50_384 overfit: loss_total first {curve[0]:.4f}, "
+        f"mean of the last 10 {tail:.4f} after {OVERFIT_STEPS} steps (every "
+        f"10th: {[round(v, 3) for v in curve[::10]]})")
+    if not all(math.isfinite(v) for v in curve) or not tail < 0.5 * curve[0]:
+        raise AssertionError("the ResNet-50 overfit did not halve the loss")
+    Checkpointer(out["overfit_ckpt"]).save(OVERFIT_STEPS, ostate)
+    del ostate
+
+    # 8. --pretrained with a torchvision-layout ResNet-50
+    pre = pretrained_phase("mpii_r50_384")
+    out["pretrained"] = pre
+    log(f"[family] apps/train.main --pretrained, ResNet-50: backbone equal "
+        f"to the file's {pre['tensors']} tensors before step 1 "
+        f"{pre['equal_before_step_1']}; loss_total over 2 steps "
+        f"{[round(v, 4) for v in pre['losses']]}")
+    if (not pre["equal_before_step_1"] or len(pre["losses"]) != 2
+            or not all(math.isfinite(v) for v in pre["losses"])):
+        raise AssertionError(f"--pretrained ResNet-50: {pre}")
+
+    # 9. video at 224² (the seeded init: no 224² snapshot exists)
+    frame0 = next(video.synthetic_frames(1, fps=0))
+    got = video.make_video_pipeline(fast, fpred.model)(frame0)
+    with torch.no_grad():
+        img = resize_bilinear(torch.from_numpy(frame0).to(dev).float()
+                              / 255.0, m.insize)
+        want = postprocess_batch_plain(m, fpred.model(img[None]))
+    want = type(want)(*(t[0] for t in want))
+    equal, ulp, _ = compare(got, want)
+    log(f"[family] first 720p frame through the 224² pipeline against the "
+        f"plain pipeline: decisions_equal={equal} max_ulp={ulp} persons "
+        f"{int(want.valid.sum())}")
+    if not equal or ulp > ULP_LIMIT:
+        raise AssertionError("224² video pipeline disagrees with the plain "
+                             "one")
+    cuda_post.LAUNCHES = 0
+    summary_v, _ = quiet_call(video.main, [
+        "--config", "mpii_r18_224_fast", "--source", "synthetic",
+        "--frames", str(VIDEO_FRAMES), "--json"])
+    summary_v["launches"] = cuda_post.LAUNCHES
+    out["video"] = summary_v
+    mpii_v = earlier["video"]
+    log(f"[family] video mpii_r18_224_fast (seeded init), {VIDEO_FRAMES} "
+        f"720p frames at 30 fps: {json.dumps(summary_v)}; mpii_r18_384 "
+        f"(phase 12, the snapshot): p50 {mpii_v['p50_ms']} ms, p90 "
+        f"{mpii_v['p90_ms']} ms, fps {mpii_v['fps']} | {card}")
+    if summary_v["launches"] != summary_v["frames"] + 1:
+        raise AssertionError(f"224² video: {summary_v['launches']} post "
+                             f"launches for {summary_v['frames']} frames and "
+                             "the warm-up")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[family] phase 28 took {out['seconds']:.1f} s")
+    return out
+
+
+def tools_phase(overfit_ckpt: str, fixed: dict, card: str) -> dict:
+    """Phase 29: the four accuracy tools through their ``main`` on the card
+    against the JAX package's values on its CPU (``TOOL_PINS``), and the
+    export of phase 28's ResNet-50 overfit checkpoint reloaded by
+    ``Predictor.from_npz``; deletes the checkpoint's directory."""
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.inference import Predictor
+    from ppn_tpu_torch.ops import cuda_post
+    from ppn_tpu_torch.train.checkpoint import load_state
+    from ppn_tpu_torch.train.steps import eval_model
+    from tools import (torch_crowding_study, torch_export_snapshot,
+                       torch_oracle_ceiling, torch_threshold_sweep)
+
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    # oracle ceiling: one launch over the whole set
+    name, size, persons, pin = TOOL_PINS["oracle"]
+    cuda_post.LAUNCHES = 0
+    _, printed = quiet_call(torch_oracle_ceiling.main, [
+        "--config", name, "--size", str(size), "--num-persons",
+        str(persons)])
+    got = printed.strip().rsplit("= ", 1)[1]
+    out["oracle"] = {"pckh": got, "pin": pin}
+    launches["oracle"] = [cuda_post.LAUNCHES]
+    log(f"[tools] torch_oracle_ceiling {name}, {size} images, {persons} "
+        f"persons: {printed.strip()} (pin {pin}); ppn_post_kernel launches "
+        f"{cuda_post.LAUNCHES}")
+    if got != pin or cuda_post.LAUNCHES != 1:
+        raise AssertionError(f"oracle ceiling: {out['oracle']}")
+
+    # the threshold sweep, without and with flip-TTA: one launch a point
+    for label, extra in (("sweep", []), ("sweep_tta", ["--flip-tta"])):
+        argv = ["--ckpt-dir", SNAPSHOT, "--size", str(TOOL_SWEEP_IMAGES),
+                "--det", "0.10,0.15,0.20", "--nms", "0.30,0.45"] + extra
+
+        def sweep(more, argv=argv, label=label):
+            cuda_post.LAUNCHES = 0
+            _, printed = quiet_call(torch_threshold_sweep.main, argv + more)
+            points = {f"{r['det']}/{r['nms']}": r["pckh_mean"] for r in (
+                json.loads(line) for line in printed.splitlines()
+                if line.startswith("{"))}
+            cmd = " ".join(["torch_threshold_sweep", *extra, *more])
+            log(f"[tools] {cmd}: {points}; ppn_post_kernel launches "
+                f"{cuda_post.LAUNCHES}")
+            launches.setdefault(label, []).append(cuda_post.LAUNCHES)
+            if cuda_post.LAUNCHES != len(points) or len(points) != 6:
+                raise AssertionError(f"{label}: {cuda_post.LAUNCHES} post "
+                                     f"launches for {len(points)} points")
+            return points
+
+        out[label] = model_points(label, sweep, TOOL_PINS[label], card)
+
+    # the crowding study: a launch per protocol, point and map set
+    def crowd(more):
+        argv = ["--config", "coco_r18_384", "--snapshot", CROWD_SNAPSHOT,
+                "--protocols", "1,3,6,0", "--size", str(TOOL_CROWD_IMAGES),
+                "--nms-grid", "0.3,0.45,0.6"] + more
+        cuda_post.LAUNCHES = 0
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT,
+                                                          "build")) as d:
+            path = os.path.join(d, "study.json")
+            quiet_call(torch_crowding_study.main, argv + ["--out", path])
+            with open(path) as fh:
+                study = json.load(fh)
+        exact = {r["protocol"]: [r["collision_bound"], r["lost_person_frac"]]
+                 + [p["oracle_ceiling"] for p in r["points"]]
+                 for r in study["results"]}
+        cmd = " ".join(["torch_crowding_study", *more])
+        log(f"[tools] {cmd} on the crowd snapshot, {TOOL_CROWD_IMAGES} "
+            f"images a protocol: (collision bound, lost-person fraction, "
+            f"oracle ceilings) {exact}; ppn_post_kernel launches "
+            f"{cuda_post.LAUNCHES}")
+        launches.setdefault("crowd", []).append(cuda_post.LAUNCHES)
+        if exact != TOOL_PINS["crowd"]["exact"] or cuda_post.LAUNCHES != 24:
+            raise AssertionError(f"crowding study: {exact} (pinned "
+                                 f"{TOOL_PINS['crowd']['exact']}), "
+                                 f"{cuda_post.LAUNCHES} launches")
+        return {f"{r['protocol']}@{p['nms']}": p["model_pckh"]
+                for r in study["results"] for p in r["points"]}
+
+    out["crowd"] = model_points("crowd", crowd, TOOL_PINS["crowd"], card)
+
+    # export: the overfit checkpoint to f16, reloaded on the card
+    npz = os.path.join(overfit_ckpt, "overfit_r50_f16.npz")
+    _, printed = quiet_call(torch_export_snapshot.main, [
+        "--config", "mpii_r50_384", "--ckpt-dir", overfit_ckpt, "--out",
+        npz])
+    with np.load(npz) as z:
+        beyond_f16 = sum(int((~np.isfinite(z[k])).sum()) for k in z.files)
+    state = load_state(get_config("mpii_r50_384"), overfit_ckpt)
+    mem = eval_model(state)
+    with torch.no_grad():       # the state dict: parameters and statistics
+        for t in mem.state_dict().values():
+            t.copy_(t.half().float())
+    reloaded = Predictor.from_npz("mpii_r50_384", npz).model
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            x = fixed["image"]
+            a, b = reloaded(x), mem(x)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(os.path.dirname(overfit_ckpt), ignore_errors=True)
+    out["export"] = {
+        "printed": printed.strip(),
+        "logits_equal": bool(((a == b) | (a.isnan() & b.isnan())).all()),
+        "values_beyond_f16": beyond_f16,
+        "nonfinite_logits": int((~torch.isfinite(a)).sum())}
+    log(f"[tools] torch_export_snapshot: {printed.strip()}; values beyond "
+        f"f16's range (written as ±inf, as the JAX exporter writes them) "
+        f"{beyond_f16}; Predictor.from_npz logits on the 8 overfit images "
+        f"equal to the in-memory eval model's with f16-rounded parameters "
+        f"and statistics (cudnn.deterministic): "
+        f"{out['export']['logits_equal']} ({out['export']['nonfinite_logits']}"
+        f" non-finite)")
+    if not out["export"]["logits_equal"]:
+        raise AssertionError(f"exported snapshot: {out['export']}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[tools] phase 29 took {out['seconds']:.1f} s")
+    return out
+
+
+def model_points(label: str, run, pins: dict, card: str) -> dict:
+    """Phase 29's check of a tool's model PCKh points: ``run(extra_argv)``
+    runs the tool and returns {point: PCKh}. Each point must be within
+    TOOL_TOLERANCE of the JAX package's bf16 value. A point that misses is
+    printed (a case for ROADMAP queue 3) and the tool runs again computing
+    in f32 (``--set train.dtype=float32``), where every point must be
+    within TOOL_TOLERANCE of the JAX package's f32 value: bf16 rounding of
+    the logits then explains the miss, while a fault of the port would
+    show in f32 too."""
+    def off(points, want):
+        if set(points) != set(want):
+            raise AssertionError(f"{label}: points {sorted(points)}, pinned "
+                                 f"{sorted(want)}")
+        return {k: [v, want[k]] for k, v in points.items()
+                if not abs(v - want[k]) <= TOOL_TOLERANCE}
+
+    got = run([])
+    misses = off(got, pins["bf16"])
+    out = {"points": got, "bf16_misses": misses}
+    log(f"[tools] {label}: every model PCKh point within {TOOL_TOLERANCE} "
+        f"of the JAX package's bf16 value except {misses} | {card}")
+    if misses:
+        f32 = run(["--set", "train.dtype=float32"])
+        bad = off(f32, pins["f32"])
+        out["f32_points"], out["f32_misses"] = f32, bad
+        log(f"[tools] {label} in f32: points off the JAX package's f32 "
+            f"values by more than {TOOL_TOLERANCE}: {bad}")
+        if bad:
+            raise AssertionError(f"{label}: f32 points {f32}, pinned "
+                                 f"{pins['f32']}")
+    return out
+
+
 def main() -> int:
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2540,7 +3155,19 @@ def main() -> int:
     # ---- 27. parity leftovers: loader workers, TensorBoard, num_params ------
     leftovers = leftovers_phase(cfg, dev, card)
 
-    # ---- 28. report ---------------------------------------------------------
+    # ---- 28. the model family: ResNet-34/50 and the 224² config -----------
+    family = family_phase(images, fixed, {
+        "post_ms": {b: times[b][0] for b in (1, B)}, "warp_ms": w_ms,
+        "warp_bound_ms": w_bound, "predict_ms": med,
+        "video": videos["overlap"]}, card)
+    worst_ulp = max(worst_ulp, family["post_max_ulp"])
+    worst_err = max(worst_err, family["post_max_abs_err"])
+    warp_err = max(warp_err, family["warp"]["max_abs_err"])
+
+    # ---- 29. the accuracy tools ---------------------------------------------
+    tools = tools_phase(family.pop("overfit_ckpt"), fixed, card)
+
+    # ---- 30. report ---------------------------------------------------------
     k_ms, p_ms, bound, whole, eager_ms, call_us = times[B]
     k1_ms, p1_ms, bound1, whole1, eager1_ms, call1_us = times[1]
     log(json.dumps({"serving_slice": {
@@ -2563,6 +3190,8 @@ def main() -> int:
         "native_decode": native, "k_step": kstep, "sharded_cache": sharded}}))
     log(json.dumps({"bench_suite": bench}))
     log(json.dumps({"parity_leftovers": leftovers}))
+    log(json.dumps({"model_family": family}))
+    log(json.dumps({"accuracy_tools": tools}))
     log(card)   # the nvidia-smi name,power.limit line, as it prints it
     log(json.dumps({"kernels": [{
         "name": "ppn_post_kernel", "route": "cuda",
@@ -2598,6 +3227,17 @@ def main() -> int:
                                   + native["video"]["launches"]),
         "launches_bench_suite": {k: v[0] for k, v in bench["launches"].items()
                                  if v[0]},
+        "launches_model_family": {
+            "mpii_r50_384_predict": family["r50_predict"]["launches"],
+            "train_cli_evaluate": {k: v["post_launches"] for k, v in
+                                   family["train_cli"].items()},
+            "video_224": family["video"]["launches"]},
+        "launches_accuracy_tools": tools["launches"],
+        "ms_7x7": {k: v["ms"] for k, v in family["post"].items()},
+        "plain_ms_7x7": {k: v["plain_ms"] for k, v in family["post"].items()},
+        "bound_ms_7x7": {k: v["bound_ms"] for k, v in family["post"].items()},
+        "bound_ms_7x7_whole_map": {k: v["bound_ms_whole_map"]
+                                   for k, v in family["post"].items()},
     }, {
         "name": "ppn_warp_kernel", "route": "cuda",
         "source": "ppn_tpu_torch/csrc/warp.cu",
@@ -2624,6 +3264,11 @@ def main() -> int:
         "launches_parity_leftovers": leftovers["warp_launches"],
         "ms_b128": w128_ms, "plain_ms_b128": wp128_ms,
         "bound_ms_b128": w128_bound,
+        "launches_model_family_train_cli": {
+            k: v["warp_launches"] for k, v in family["train_cli"].items()},
+        "ms_224_b32": family["warp"]["ms"],
+        "plain_ms_224_b32": family["warp"]["plain_ms"],
+        "bound_ms_224_b32": family["warp"]["bound_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

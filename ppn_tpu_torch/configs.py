@@ -306,7 +306,8 @@ def coco_r18_384_crowded() -> Config:
 
 
 def mpii_r50_384() -> Config:
-    """ResNet-50 bottleneck variant."""
+    """ResNet-50 bottleneck variant (the reference lineage ships
+    resnet18/34/50 backbones — SURVEY.md §2.1 Backbone row)."""
     return Config(
         name="mpii_r50_384",
         model=PPNConfig(backbone="resnet50"),
@@ -314,7 +315,7 @@ def mpii_r50_384() -> Config:
 
 
 def mpii_r18_224_fast() -> Config:
-    """Low-latency variant for the streaming-video path."""
+    """Low-latency variant for the streaming-video path (BASELINE config #5)."""
     return Config(
         name="mpii_r18_224_fast",
         model=PPNConfig(insize=(224, 224), outsize=(7, 7)),

@@ -73,7 +73,8 @@ def _numpy_leaves(flat, seed):
     return leaves
 
 
-@pytest.mark.parametrize("name", ["tiny_test", "mpii_r18_384"])
+@pytest.mark.parametrize("name", ["tiny_test", "mpii_r18_384",
+                                  "mpii_r18_224_fast"])
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 def test_logits_match_jax(name, compute):
     jdtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[compute]

@@ -33,7 +33,8 @@ from test_postprocess import oracle_nms, oracle_parse
 ULPS = 4
 DECISIONS = ("kp_cell", "kp_valid", "valid", "num_kp")
 FLOATS = ("kp_box", "kp_score")
-CONFIGS = ["tiny_test", "mpii_r18_384", "coco_r18_384_crowded"]
+CONFIGS = ["tiny_test", "mpii_r18_384", "coco_r18_384_crowded",
+           "mpii_r18_224_fast"]
 
 
 def _assert_people_match(got, want, ctx):

@@ -3,8 +3,8 @@
 the six cases of tests/test_torch_import.py on the same synthesized
 torchvision state dicts (no torchvision needed, nothing downloaded), and the
 port's backbone forward against the JAX backbone's on one converted dict
-within the bf16 logit tolerance of tests/test_torch_model.py (3e-2 of the
-largest output)."""
+each of ResNet-18 and ResNet-50, within the bf16 logit tolerance of
+tests/test_torch_model.py (3e-2 of the largest output)."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +14,7 @@ import torch
 from flax import nnx
 
 from ppn_tpu.nn.resnet import resnet18 as jax_resnet18
+from ppn_tpu.nn.resnet import resnet50 as jax_resnet50
 from ppn_tpu.utils.torch_import import load_torch_resnet as jax_load
 from ppn_tpu_torch.configs import get_config
 from ppn_tpu_torch.nn.resnet import resnet18, resnet50
@@ -126,13 +127,18 @@ def test_bottleneck_sd_into_basic_backbone_raises():
         load_torch_resnet(resnet18(), _torch_sd(sd))
 
 
-def test_backbone_forward_matches_jax_on_the_converted_dict():
-    sd = _fake_torchvision_resnet18_sd(np.random.default_rng(4))
-    jbb = jax_resnet18(rngs=nnx.Rngs(0))
+@pytest.mark.parametrize("backbone", ["resnet18", "resnet50"])
+def test_backbone_forward_matches_jax_on_the_converted_dict(backbone):
+    fake, jax_make, make = {
+        "resnet18": (_fake_torchvision_resnet18_sd, jax_resnet18, resnet18),
+        "resnet50": (_fake_torchvision_resnet50_sd, jax_resnet50, resnet50),
+    }[backbone]
+    sd = fake(np.random.default_rng(4))
+    jbb = jax_make(rngs=nnx.Rngs(0))
     jax_load(jbb, sd)
     jbb.eval()
     graphdef, jstate = nnx.split(jbb)
-    bb = resnet18().eval()
+    bb = make().eval()
     load_torch_resnet(bb, _torch_sd(sd))
     x = np.random.default_rng(5).random((2, 64, 64, 3), np.float32)
     want = np.asarray(jax.jit(lambda s, x: nnx.merge(graphdef, s)(x))(

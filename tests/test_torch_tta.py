@@ -36,7 +36,8 @@ from ppn_tpu_torch.utils.params_io import state_dict_from_jax_leaves
 
 from test_torch_model import _jax_template, _numpy_leaves
 
-CONFIGS = ["tiny_test", "mpii_r18_384", "coco_r18_384_crowded"]
+CONFIGS = ["tiny_test", "mpii_r18_384", "coco_r18_384_crowded",
+           "mpii_r18_224_fast"]
 DECISIONS = ("kp_cell", "kp_valid", "valid", "num_kp")
 F32_TOL = 2e-5
 
@@ -146,7 +147,8 @@ def test_mirror_images_matches_jax_and_is_involution(dtype):
 
 
 @pytest.mark.parametrize("src, dst", [((720, 1280), (384, 384)),
-                                      ((120, 160), (64, 64))])
+                                      ((120, 160), (64, 64)),
+                                      ((720, 1280), (224, 224))])
 def test_resize_bilinear_matches_jax(src, dst):
     """jax.image.resize's bilinear antialiases when it downscales."""
     frame = np.random.default_rng(5).integers(0, 256, (*src, 3), np.uint8)

@@ -81,7 +81,8 @@ def _check(got, want):
     return int((d > 0).sum())
 
 
-@pytest.mark.parametrize("name", ["mpii_r18_384", "tiny_test"])
+@pytest.mark.parametrize("name", ["mpii_r18_384", "tiny_test",
+                                  "mpii_r18_224_fast"])
 @pytest.mark.parametrize("pair", [(0, 1), (2, 3), (4, 5)])
 def test_plain_warp_matches_jax_separable(name, pair):
     """Two images in one batch, each with its own matrix from CASES,
