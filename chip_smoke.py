@@ -233,7 +233,13 @@ Phases, each raising on failure:
                losses, 10 warp launches, the ``eval:`` line from 2 post
                launches, the median step; one f32 mpii_r50_384 step on the
                card against the CPU step from the same state (loss terms
-               within rel 1e-4); a ResNet-50 overfit of phase 16's 8 images
+               within rel 1e-4, grad_norm within rel 1e-3; the gradients
+               and the updated state printed), ``sgd_update`` from the
+               same state on the same seeded gradients (1e-6 of each
+               tensor's largest value), two Bottleneck blocks in f32
+               training mode against the CPU (output and gradients within
+               2e-5, statistics 1e-5 of each tensor's largest value); a
+               ResNet-50 overfit of phase 16's 8 images
                from a fresh init (the loss halves in 60 steps), kept as a
                checkpoint for phase 29; ``--pretrained`` with a seeded
                torchvision-layout ResNet-50 (phase 21's checks);
@@ -250,16 +256,18 @@ Phases, each raising on failure:
                0.3/0.45/0.6) through their ``main`` on the card, against
                the JAX package's values on its CPU at the same arguments
                (``TOOL_PINS``): oracle ceilings, collision bounds and
-               lost-person fractions equal to their printed decimals,
-               model PCKh within 3e-3 (a point that misses is printed, and
-               the tool runs again in f32 against the JAX package's f32
-               values, where every point must be within 3e-3), post
-               launches as the code implies (one per point and map set);
-               ``torch_export_snapshot.py`` of phase 28's overfit
-               checkpoint, reloaded by ``Predictor.from_npz``: its logits
-               bitwise those of the in-memory eval model with parameters
-               and statistics rounded through f16 (cuDNN's deterministic
-               algorithms); the phase's time;
+               lost-person fractions equal to their printed decimals; each
+               model tool run in bf16 and in f32, every f32 point within
+               3e-3 of the JAX package's f32 value and every bf16 point
+               within 3e-3 of its bf16 value, but for the points named in
+               ``TOOL_BF16_MISSES`` (within the JAX package's own
+               bf16-to-f32 gap); post launches as the code implies (one
+               per point and map set); ``torch_export_snapshot.py`` of
+               phase 28's overfit checkpoint, reloaded by
+               ``Predictor.from_npz``: its logits finite and bitwise those
+               of the in-memory eval model with parameters and statistics
+               rounded through f16 (cuDNN's deterministic algorithms); the
+               phase's time;
 30. report  — the serving, evaluation, file-input, ninth, eleventh,
                benchmark, parity-leftover, model-family and tool numbers,
                the kernels line, then the device line last.
@@ -278,6 +286,7 @@ timing launches fall outside those windows.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import inspect
@@ -394,6 +403,24 @@ FAMILY_F32_TOL = 1e-4    # f32 with TF32 off: cuDNN may choose FFT or
                          # sum's; 5× the JAX-vs-port F32_TOL over ResNet-50's
                          # 53 convs, and phase 13's limit on a step's terms
 FAMILY_TRAIN_IMAGES, FAMILY_STEPS = 32, 10
+# the f32 ResNet-50 step, card against CPU, B=2 from a fresh init: the
+# loss terms within phase 13's rel 1e-4; grad_norm within rel 1e-3. That
+# gradient is poorly conditioned: moving every input pixel one f32 ulp
+# moves grad_norm rel 3.9e-4 on the card and single gradient tensors by up
+# to 16% of their largest value (the phase prints both; PERF.md),
+# so the step's gradients and updated state are printed, not held. What is
+# held instead: two Bottleneck blocks in training mode on seeded inputs,
+# the CPU replaying the card's ReLU decisions (tests/test_torch_family.py's
+# limits against Flax: output and gradients 2e-5, statistics 1e-5 of each
+# tensor's largest value), and the update
+# applied to the same gradients on both sides (1e-6 of each tensor's
+# largest value: elementwise ops, a few ulps at most)
+FAMILY_STEP_REL, FAMILY_GRAD_NORM_REL = 1e-4, 1e-3
+BLOCK_TOL, BLOCK_STATS_TOL, UPDATE_TOL = 2e-5, 1e-5, 1e-6
+# (cin, cout, stride, input side) of each Bottleneck: layer2's first block
+# (the stride-2 projection, 256 -> 128·4) and its second (identity) at
+# their sizes in mpii_r50_384
+FAMILY_BLOCKS = ((256, 128, 2, 96), (512, 128, 1, 48))
 # phase 29: the tools' sizes, and the JAX package's values on its CPU at
 # exactly phase 29's arguments (tools/oracle_ceiling.py,
 # tools/threshold_sweep.py, tools/crowding_study.py; "f32": the same runs
@@ -403,6 +430,12 @@ FAMILY_TRAIN_IMAGES, FAMILY_STEPS = 32, 10
 # bound, lost-person fraction and oracle ceilings at nms 0.3/0.45/0.6.
 TOOL_SWEEP_IMAGES, TOOL_CROWD_IMAGES = 64, 32
 TOOL_TOLERANCE = 3e-3    # about one joint in 378
+# bf16 points known to miss TOOL_TOLERANCE on the card (bf16 rounding of the
+# logits reorders crowded detections: ROADMAP queue 3). Each may miss by no
+# more than the JAX package's own largest bf16-to-f32 gap at that tool's
+# pinned points (7.3e-3 for the crowding study, at 6_person@0.6); any other
+# miss fails.
+TOOL_BF16_MISSES = {"crowd": ("random_1_to_12@0.6",)}
 TOOL_PINS = {
     "oracle": ("mpii_r18_384", 64, 2, "0.9940"),
     "sweep": {
@@ -2197,26 +2230,105 @@ def family_phase(images: np.ndarray, fixed: dict, earlier: dict,
         "valid": (heldout_dataset(mpii, num_persons=2), 16, 10_000)}, "jpg")
     out["train_cli"] = family_training_cli(d, card)
 
-    # 6. one f32 ResNet-50 step, card against CPU, from the same state
+    # 6. one f32 ResNet-50 step, card against CPU, from the same state: the
+    # loss terms and grad_norm held, the gradients (after a first step from
+    # zero momentum each trace is the decayed gradient g + wd·p) and the
+    # state after the update printed
     tcfg = dataclasses.replace(r50, train=dataclasses.replace(
         r50.train, dtype="float32", lr_schedule="constant",
         warmup_steps=0, ema_decay=0.9))
-    cpu_state = st.create_train_state(tcfg, device="cpu")
-    gpu_state = st.create_train_state(tcfg, device=dev)
-    gpu_state.model.load_state_dict(cpu_state.model.state_dict())
+    sd0 = {k: v.clone() for k, v in st.create_train_state(
+        tcfg, device="cpu").model.state_dict().items()}
     batch = DeviceCache(SyntheticPoseDataset(r50, size=2, seed=1),
                         device="cpu").batch([0, 1])
-    want = st.train_step(tcfg, cpu_state, batch)
-    got = st.train_step(tcfg, gpu_state, batch)
-    rel = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
-           for k in want if k.startswith("loss_")}
-    out["f32_step_rel"] = rel
-    log(f"[family] mpii_r50_384 f32 train step, card vs CPU, B=2: worst rel "
-        f"{max(rel.values()):.3g} ({max(rel, key=rel.get)}); grad_norm "
-        f"{float(got['grad_norm']):.6g} vs {float(want['grad_norm']):.6g}")
-    if max(rel.values()) > 1e-4:
-        raise AssertionError(f"ResNet-50 card and CPU steps disagree: {rel}")
-    del cpu_state, gpu_state
+    image = batch["image"].cpu().float() / 255.0   # as the model reads uint8
+    nudged = torch.nextafter(image, torch.full_like(image, 2.0))
+
+    def step(device, img):
+        state = st.create_train_state(tcfg, device=device)
+        state.model.load_state_dict(sd0)
+        terms = st.train_step(tcfg, state, dict(batch, image=img))
+        return state, {k: float(v) for k, v in terms.items()}
+
+    def apart(a, b):        # (grad_norm rel, worst gradient tensor ·max|g|)
+        (sa, ta), (sb, tb) = a, b
+        return (abs(ta["grad_norm"] - tb["grad_norm"]) / tb["grad_norm"],
+                *max_rel_state({n: t.cpu() for n, t in sa.trace.items()},
+                               {n: t.cpu() for n, t in sb.trace.items()}))
+
+    (cpu_state, want), (gpu_state, got) = cpu_run, gpu_run = (
+        step("cpu", image), step(dev, image))
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    grad_rel, grad_worst = apart(gpu_run, cpu_run)[1:]
+    # the same step with every pixel one f32 ulp up, on each side
+    nudge = {side: apart(step(device, nudged), run) for side, device, run in (
+        ("cpu", "cpu", cpu_run), ("card", dev, gpu_run))}
+    state_rel, state_worst = max_rel_state(
+        {n: t.cpu() for n, t in gpu_state.model.state_dict().items()},
+        cpu_state.model.state_dict())
+    out["f32_step"] = {"rel": rel, "grad_rel": grad_rel,
+                       "grad_worst_tensor": grad_worst,
+                       "state_rel": state_rel,
+                       "state_worst_tensor": state_worst, "nudge": nudge}
+    terms_rel = max(v for k, v in rel.items() if k != "grad_norm")
+    log(f"[family] mpii_r50_384 f32 train step, card vs CPU, B=2: loss "
+        f"terms worst rel {terms_rel:.3g} (limit {FAMILY_STEP_REL}); "
+        f"grad_norm {got['grad_norm']:.6g} vs {want['grad_norm']:.6g}, rel "
+        f"{rel['grad_norm']:.3g} (limit {FAMILY_GRAD_NORM_REL}); not held, "
+        f"a poorly conditioned gradient: gradients worst {grad_rel:.3g}"
+        f"·max|g| ({grad_worst}), state after the step worst "
+        f"{state_rel:.3g}·max|p| ({state_worst}); every pixel one ulp up "
+        f"moves, against the same side's step, "
+        + "; ".join(f"on the {k}: grad_norm rel {v[0]:.3g}, gradients worst "
+                    f"{v[1]:.3g}·max|g| ({v[2]})" for k, v in nudge.items()))
+    if (terms_rel > FAMILY_STEP_REL
+            or rel["grad_norm"] > FAMILY_GRAD_NORM_REL):
+        raise AssertionError(f"ResNet-50 card and CPU steps disagree: "
+                             f"{out['f32_step']}")
+    # the update from the same state (the CPU's after that step, copied to
+    # the card) on the same gradients: seeded, one per parameter
+    with torch.no_grad():
+        gpu_state.model.load_state_dict(cpu_state.model.state_dict())
+        for part in ("trace", "ema"):
+            for n, t in getattr(gpu_state, part).items():
+                t.copy_(getattr(cpu_state, part)[n])
+    rng = np.random.default_rng(15)
+    grads = {n: torch.from_numpy(rng.standard_normal(
+        tuple(p.shape)).astype(np.float32))
+        for n, p in cpu_state.model.named_parameters()}
+    st.sgd_update(tcfg, cpu_state, grads)
+    st.sgd_update(tcfg, gpu_state, {n: g.to(dev) for n, g in grads.items()})
+    update = {}
+    for part in ("model", "trace", "ema"):
+        a, b = ((s.model.state_dict() if part == "model"
+                 else getattr(s, part)) for s in (gpu_state, cpu_state))
+        update[part] = max_rel_state({n: t.cpu() for n, t in a.items()}, b)
+    out["f32_step"]["update_rel"] = update
+    log(f"[family] sgd_update from the same state on the same seeded "
+        f"gradients, card vs CPU: worst per tensor (·max) "
+        + ", ".join(f"{k} {v:.3g} ({n})" for k, (v, n) in update.items())
+        + f" (limit {UPDATE_TOL})")
+    if max(v for v, _ in update.values()) > UPDATE_TOL:
+        raise AssertionError(f"sgd_update, card vs CPU: {update}")
+    del cpu_state, gpu_state, cpu_run, gpu_run
+    out["blocks"] = {}
+    for cin, cout, stride, side in FAMILY_BLOCKS:
+        worst = bottleneck_card_vs_cpu(cin, cout, stride, side, dev)
+        key = f"{cin}->{cout}x4/s{stride}@{side}"
+        out["blocks"][key] = worst
+        log(f"[family] Bottleneck {key}, f32 training mode, B=2, card vs "
+            f"CPU on seeded inputs and a seeded linear loss, the CPU "
+            f"replaying the card's ReLU decisions ({worst['relu_ties']} "
+            f"ties it would have decided otherwise): worst per tensor (·max) "
+            + ", ".join(f"{k} {worst[k][0]:.3g} ({worst[k][1]})"
+                        for k in ("output", "gradients", "statistics"))
+            + f" (limits {BLOCK_TOL}, statistics {BLOCK_STATS_TOL}); with "
+            f"the CPU's own decisions, gradients "
+            f"{worst['own_decisions_gradients'][0]:.3g} "
+            f"({worst['own_decisions_gradients'][1]}), not held")
+        if (max(worst["output"][0], worst["gradients"][0]) > BLOCK_TOL
+                or worst["statistics"][0] > BLOCK_STATS_TOL):
+            raise AssertionError(f"Bottleneck {key}: {worst}")
 
     # 7. overfit the 8 fixed images from a fresh init, kept for phase 29
     ocfg = constant_lr(r50)
@@ -2279,6 +2391,77 @@ def family_phase(images: np.ndarray, fixed: dict, earlier: dict,
     return out
 
 
+def bottleneck_card_vs_cpu(cin: int, cout: int, stride: int, side: int,
+                           dev) -> dict:
+    """One f32 ``Bottleneck`` in training mode on the card against the same
+    block on the CPU: seeded weights (BatchNorm scales and biases moved off
+    1 and 0), a seeded (2, cin, side, side) input and a seeded linear loss.
+    The CPU replays the card's ReLU decisions: a pre-activation within
+    rounding of 0 can fall on the other side, and through the BatchNorm
+    backward one such tie moves its whole channel's gradients, so the
+    comparison holds the arithmetic, with the ties counted. Returns the
+    worst |Δ| over the largest |value| and its tensor for the output, the
+    gradients (every parameter's and the input's) and the running
+    statistics; the ReLU decisions the CPU would have made otherwise; and
+    the worst gradient when the CPU makes its own decisions."""
+    import copy
+
+    from ppn_tpu_torch.nn import resnet
+
+    torch.manual_seed(15)
+    init = resnet.Bottleneck(cin, cout, stride, dtype=torch.float32).train()
+    rng = np.random.default_rng(15)
+    with torch.no_grad():
+        for n, p in init.named_parameters():
+            if p.ndim == 1:
+                p.copy_(torch.from_numpy((0.1 * rng.standard_normal(
+                    p.shape) + (n.endswith("weight"))).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal(
+        (2, cin, side, side)).astype(np.float32))
+    out_side = side // stride
+    r = torch.from_numpy(rng.standard_normal(
+        (2, cout * 4, out_side, out_side)).astype(np.float32))
+    masks, replay = [], {"on": False, "next": 0, "ties": 0}
+
+    class Functional:
+        """torch.nn.functional with ``relu`` recording its masks (the
+        card's run) or applying the recorded ones in order (the CPU's)."""
+        def __getattr__(self, name):
+            return getattr(torch.nn.functional, name)
+
+        @staticmethod
+        def relu(t):
+            if not replay["on"]:
+                masks.append(t > 0)
+                return t * masks[-1]
+            m = masks[replay["next"]].to(t.device)
+            replay["next"] += 1
+            replay["ties"] += int(((t > 0) != m).sum())
+            return t * m
+
+    def run(block, device):
+        xt = x.to(device).requires_grad_()
+        y = block(xt)
+        names, params = zip(*block.named_parameters())
+        grads = torch.autograd.grad((y * r.to(device)).sum(), (xt, *params))
+        return ({"output": y.detach().cpu()},
+                {n: g.cpu() for n, g in zip(("input", *names), grads)},
+                {n: b.cpu() for n, b in block.named_buffers()})
+
+    functional, resnet.F = resnet.F, Functional()
+    try:
+        got = run(copy.deepcopy(init).to(dev), dev)
+        replay["on"] = True
+        want = run(copy.deepcopy(init), "cpu")
+    finally:
+        resnet.F = functional
+    out = {k: max_rel_state(g, w) for k, g, w in zip(
+        ("output", "gradients", "statistics"), got, want)}
+    out["relu_ties"] = replay["ties"]
+    out["own_decisions_gradients"] = max_rel_state(got[1], run(init, "cpu")[1])
+    return out
+
+
 def tools_phase(overfit_ckpt: str, fixed: dict, card: str) -> dict:
     """Phase 29: the four accuracy tools through their ``main`` on the card
     against the JAX package's values on its CPU (``TOOL_PINS``), and the
@@ -2314,15 +2497,16 @@ def tools_phase(overfit_ckpt: str, fixed: dict, card: str) -> dict:
         argv = ["--ckpt-dir", SNAPSHOT, "--size", str(TOOL_SWEEP_IMAGES),
                 "--det", "0.10,0.15,0.20", "--nms", "0.30,0.45"] + extra
 
-        def sweep(more, argv=argv, label=label):
+        def sweep(dtype, argv=argv, label=label):
             cuda_post.LAUNCHES = 0
-            _, printed = quiet_call(torch_threshold_sweep.main, argv + more)
+            with computing_in(dtype):
+                _, printed = quiet_call(torch_threshold_sweep.main, argv)
             points = {f"{r['det']}/{r['nms']}": r["pckh_mean"] for r in (
                 json.loads(line) for line in printed.splitlines()
                 if line.startswith("{"))}
-            cmd = " ".join(["torch_threshold_sweep", *extra, *more])
-            log(f"[tools] {cmd}: {points}; ppn_post_kernel launches "
-                f"{cuda_post.LAUNCHES}")
+            cmd = " ".join(["torch_threshold_sweep", *extra])
+            log(f"[tools] {cmd} ({dtype}): {points}; ppn_post_kernel "
+                f"launches {cuda_post.LAUNCHES}")
             launches.setdefault(label, []).append(cuda_post.LAUNCHES)
             if cuda_post.LAUNCHES != len(points) or len(points) != 6:
                 raise AssertionError(f"{label}: {cuda_post.LAUNCHES} post "
@@ -2332,13 +2516,13 @@ def tools_phase(overfit_ckpt: str, fixed: dict, card: str) -> dict:
         out[label] = model_points(label, sweep, TOOL_PINS[label], card)
 
     # the crowding study: a launch per protocol, point and map set
-    def crowd(more):
+    def crowd(dtype):
         argv = ["--config", "coco_r18_384", "--snapshot", CROWD_SNAPSHOT,
                 "--protocols", "1,3,6,0", "--size", str(TOOL_CROWD_IMAGES),
-                "--nms-grid", "0.3,0.45,0.6"] + more
+                "--nms-grid", "0.3,0.45,0.6"]
         cuda_post.LAUNCHES = 0
-        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT,
-                                                          "build")) as d:
+        with tempfile.TemporaryDirectory(dir=os.path.join(
+                ROOT, "build")) as d, computing_in(dtype):
             path = os.path.join(d, "study.json")
             quiet_call(torch_crowding_study.main, argv + ["--out", path])
             with open(path) as fh:
@@ -2346,8 +2530,8 @@ def tools_phase(overfit_ckpt: str, fixed: dict, card: str) -> dict:
         exact = {r["protocol"]: [r["collision_bound"], r["lost_person_frac"]]
                  + [p["oracle_ceiling"] for p in r["points"]]
                  for r in study["results"]}
-        cmd = " ".join(["torch_crowding_study", *more])
-        log(f"[tools] {cmd} on the crowd snapshot, {TOOL_CROWD_IMAGES} "
+        log(f"[tools] torch_crowding_study ({dtype}) on the crowd "
+            f"snapshot, {TOOL_CROWD_IMAGES} "
             f"images a protocol: (collision bound, lost-person fraction, "
             f"oracle ceilings) {exact}; ppn_post_kernel launches "
             f"{cuda_post.LAUNCHES}")
@@ -2395,7 +2579,8 @@ def tools_phase(overfit_ckpt: str, fixed: dict, card: str) -> dict:
         f"and statistics (cudnn.deterministic): "
         f"{out['export']['logits_equal']} ({out['export']['nonfinite_logits']}"
         f" non-finite)")
-    if not out["export"]["logits_equal"]:
+    if (not out["export"]["logits_equal"]
+            or out["export"]["nonfinite_logits"]):
         raise AssertionError(f"exported snapshot: {out['export']}")
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
@@ -2404,36 +2589,59 @@ def tools_phase(overfit_ckpt: str, fixed: dict, card: str) -> dict:
 
 
 def model_points(label: str, run, pins: dict, card: str) -> dict:
-    """Phase 29's check of a tool's model PCKh points: ``run(extra_argv)``
-    runs the tool and returns {point: PCKh}. Each point must be within
-    TOOL_TOLERANCE of the JAX package's bf16 value. A point that misses is
-    printed (a case for ROADMAP queue 3) and the tool runs again computing
-    in f32 (``--set train.dtype=float32``), where every point must be
-    within TOOL_TOLERANCE of the JAX package's f32 value: bf16 rounding of
-    the logits then explains the miss, while a fault of the port would
-    show in f32 too."""
-    def off(points, want):
-        if set(points) != set(want):
-            raise AssertionError(f"{label}: points {sorted(points)}, pinned "
+    """Phase 29's check of a tool's model PCKh points: ``run(dtype)`` runs
+    the tool with its forward computing in ``dtype`` ("bf16", the config's
+    own, or "f32") and returns {point: PCKh}; both run every time. In f32
+    every point must be within TOOL_TOLERANCE of the JAX package's f32
+    value: a fault of the port shows there. In bf16 every point must be
+    within TOOL_TOLERANCE of the JAX package's bf16 value, except a point
+    named in TOOL_BF16_MISSES, which may miss by no more than the JAX
+    package's own largest bf16-to-f32 gap at this tool's points."""
+    gap = max(abs(pins["bf16"][k] - pins["f32"][k]) for k in pins["bf16"])
+    known = TOOL_BF16_MISSES.get(label, ())
+    out = {}
+    for dtype in ("bf16", "f32"):
+        got, want = run(dtype), pins[dtype]
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: points {sorted(got)}, pinned "
                                  f"{sorted(want)}")
-        return {k: [v, want[k]] for k, v in points.items()
-                if not abs(v - want[k]) <= TOOL_TOLERANCE}
-
-    got = run([])
-    misses = off(got, pins["bf16"])
-    out = {"points": got, "bf16_misses": misses}
-    log(f"[tools] {label}: every model PCKh point within {TOOL_TOLERANCE} "
-        f"of the JAX package's bf16 value except {misses} | {card}")
-    if misses:
-        f32 = run(["--set", "train.dtype=float32"])
-        bad = off(f32, pins["f32"])
-        out["f32_points"], out["f32_misses"] = f32, bad
-        log(f"[tools] {label} in f32: points off the JAX package's f32 "
-            f"values by more than {TOOL_TOLERANCE}: {bad}")
+        misses = {k: [v, want[k]] for k, v in got.items()
+                  if not abs(v - want[k]) <= TOOL_TOLERANCE}
+        bad = {k: m for k, m in misses.items() if dtype == "f32"
+               or k not in known or not abs(m[0] - m[1]) <= gap}
+        out[dtype] = {"points": got, "misses": misses}
+        log(f"[tools] {label} ({dtype}): points off the JAX package's "
+            f"{dtype} values by more than {TOOL_TOLERANCE}: {misses}"
+            + (f" (allowed: {list(known)} within {gap:.4g}, the JAX "
+               f"package's own bf16-to-f32 gap)" if dtype == "bf16" and known
+               else "") + f" | {card}")
         if bad:
-            raise AssertionError(f"{label}: f32 points {f32}, pinned "
-                                 f"{pins['f32']}")
+            raise AssertionError(f"{label} ({dtype}): points {got}, pinned "
+                                 f"{want}, failing {bad}")
     return out
+
+
+@contextlib.contextmanager
+def computing_in(dtype: str):
+    """With ``dtype`` "f32", ``ppn_tpu_torch.configs.get_config`` gives each
+    config with ``train.dtype`` float32 (the tools read their config
+    through it, so their forward computes in f32); with "bf16" the configs
+    as they are."""
+    from ppn_tpu_torch import configs
+
+    get = configs.get_config
+
+    def get_f32(name, **overrides):
+        cfg = get(name, **overrides)
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, dtype="float32"))
+
+    if dtype == "f32":
+        configs.get_config = get_f32
+    try:
+        yield
+    finally:
+        configs.get_config = get
 
 
 def main() -> int:

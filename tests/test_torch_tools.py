@@ -111,22 +111,22 @@ CROWD_ARGV = ["--config", "coco_r18_384", "--snapshot", CROWD, "--protocols",
 
 def test_crowding_study_model_pckh_matches_jax_in_f32(tmp_path, capsys,
                                                       monkeypatch):
-    """The crowd snapshot computing in f32 on both sides (the port tool's
-    ``--set train.dtype=float32``; the JAX tool, which has no such flag,
-    through its ``get_config``): the whole JSON, model PCKh included, is
-    equal."""
+    """The crowd snapshot computing in f32 on both sides (each package's
+    ``get_config`` patched to give the config with ``train.dtype``
+    float32): the whole JSON, model PCKh included, is equal."""
     import ppn_tpu.configs
+    import ppn_tpu_torch.configs
 
-    def get_f32(name, _get=ppn_tpu.configs.get_config):
-        cfg = _get(name)
-        return dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, dtype="float32"))
+    for configs in (ppn_tpu.configs, ppn_tpu_torch.configs):
+        def get_f32(name, _get=configs.get_config):
+            cfg = _get(name)
+            return dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, dtype="float32"))
 
-    monkeypatch.setattr(ppn_tpu.configs, "get_config", get_f32)
+        monkeypatch.setattr(configs, "get_config", get_f32)
     want = _crowding(tmp_path, jax_crowding.main, "jax.json", CROWD_ARGV)
     got = _crowding(tmp_path, torch_crowding_study.main, "port.json",
-                    CROWD_ARGV + ["--device", "cpu", "--set",
-                                  "train.dtype=float32"])
+                    CROWD_ARGV + ["--device", "cpu"])
     assert all("model_pckh" in p for r in want["results"]
                for p in r["points"])
     assert got == want

@@ -3,8 +3,7 @@
 For each crowding level (fixed persons-per-image protocols, plus the
 random-1..max stress protocol) this computes, on the same held-out
 synthetic scenes, what tools/crowding_study.py computes, under its flags,
-printed lines and JSON keys, with ``--device`` and ``--set`` (dotted
-config overrides, e.g. ``--set train.dtype=float32``) added:
+printed lines and JSON keys, with ``--device`` added:
 
 1. **collision bound** — a parser-independent upper bound on PCKh from
    grid-cell collisions alone (persons whose instance centers share a
@@ -20,7 +19,7 @@ config overrides, e.g. ``--set train.dtype=float32``) added:
 
     python tools/torch_crowding_study.py \
         --snapshot artifacts/crowd_hero_r5_ema_f16.npz --out study.json \
-        [--set PATH=VALUE] [--device cuda|cpu]
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -118,11 +117,6 @@ def main(argv=None):
     p.add_argument("--nms-grid", default="0.3,0.45,0.6")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--out", default=None)
-    p.add_argument("--set", action="append", default=[], dest="overrides",
-                   metavar="PATH=VALUE",
-                   help="dotted-path config override, e.g. "
-                        "--set train.dtype=float32 (the forward's compute "
-                        "dtype)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the forward and the post-process")
     args = p.parse_args(argv)
@@ -134,10 +128,6 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.config)
-    if args.overrides:
-        from ppn_tpu_torch.overrides import apply_overrides
-
-        cfg = apply_overrides(cfg, args.overrides)
     nms_grid = [float(x) for x in args.nms_grid.split(",")]
 
     model = None

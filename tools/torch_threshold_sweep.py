@@ -5,16 +5,14 @@ The model forward runs once over the validation set, and its feature maps
 stay on ``--device``; each (det, nms) point then re-runs only the
 post-process over them, in one call (one ``ppn_post_kernel`` launch on a
 GPU). The flags, the printed lines and the JSON keys are those of
-tools/threshold_sweep.py, with ``--device`` and ``--set`` (dotted config
-overrides, as tools/oracle_ceiling.py takes them; ``--set
-train.dtype=float32`` computes the forward in f32) added. ``--ckpt-dir``
-is an inference snapshot (``.npz``) or a directory of the port's own
-checkpoints (``ckpt_*.pt``, read by ``train/checkpoint.load_state``; the
-EMA parameters when tracked).
+tools/threshold_sweep.py, with ``--device`` added. ``--ckpt-dir`` is an
+inference snapshot (``.npz``) or a directory of the port's own checkpoints
+(``ckpt_*.pt``, read by ``train/checkpoint.load_state``; the EMA
+parameters when tracked).
 
     python tools/torch_threshold_sweep.py --ckpt-dir CKPT_OR_NPZ \
         [--num-persons 2] [--det 0.1,0.15,0.2] [--nms 0.3,0.45] \
-        [--flip-tta] [--set PATH=VALUE] [--device cuda|cpu]
+        [--flip-tta] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -80,11 +78,6 @@ def main(argv=None):
     p.add_argument("--flip-tta", action="store_true")
     p.add_argument("--per-joint", action="store_true",
                    help="print the best point's full per-joint PCKh dict")
-    p.add_argument("--set", action="append", default=[], dest="overrides",
-                   metavar="PATH=VALUE",
-                   help="dotted-path config override, e.g. "
-                        "--set train.dtype=float32 (the forward's compute "
-                        "dtype)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the forward and the post-process")
     args = p.parse_args(argv)
@@ -96,10 +89,6 @@ def main(argv=None):
     from ppn_tpu_torch.train.steps import eval_model
 
     base = get_config(args.config)
-    if args.overrides:
-        from ppn_tpu_torch.overrides import apply_overrides
-
-        base = apply_overrides(base, args.overrides)
     val = SyntheticPoseDataset(base, size=args.size, seed=10_000,
                                cache=True, num_persons=args.num_persons)
     if args.ckpt_dir.endswith(".npz"):
