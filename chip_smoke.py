@@ -268,9 +268,26 @@ Phases, each raising on failure:
                of the in-memory eval model with parameters and statistics
                rounded through f16 (cuDNN's deterministic algorithms); the
                phase's time;
-30. report  — the serving, evaluation, file-input, ninth, eleventh,
-               benchmark, parity-leftover, model-family and tool numbers,
-               the kernels line, then the device line last.
+30. stage profilers — checks first, on fresh copies under cuDNN's
+               deterministic algorithms: ``tools/torch_train_split.py``'s
+               ``full_body`` bitwise ``train_step(augment=True)`` (loss
+               terms, ``grad_norm``, parameters), ``torch_bwd_split.py``'s
+               stages (split at the cumulative ``stage_sizes``) composed
+               bitwise ``backbone(x)`` on ResNet-18, -34 and -50 in
+               channels_last, ``torch_fwd_split.py``'s ingest ∘ blocks ∘
+               head bitwise ``model(img)``, its s2d stem within 3e-2 of
+               the largest value of the 7×7 stem; then each tool through
+               its ``main`` at ``SPLIT_ITERS``: the train split on
+               mpii_r18_384 at B=32 (every variant), bwd_split on
+               ResNet-18 at B=32 and 128 and on ResNet-34 and -50 at B=32,
+               fwd_split at B=128 with the s2d A/B; ``ppn_warp_kernel``
+               launches equal to what the train split's calls imply
+               (``split_warp_launches``), none elsewhere, no post launch;
+               the phase's time;
+31. report  — the serving, evaluation, file-input, ninth, eleventh,
+               benchmark, parity-leftover, model-family, tool and
+               profiler numbers, the kernels line, then the device line
+               last.
 
 Launch counts are set to 0 just before each path (phase 5 for inference,
 7 for TTA, 8 for each evaluation and CLI run, 9 for each CLI run on files,
@@ -280,8 +297,8 @@ before its steps, 20 before the exported call, 23 before the evaluate and
 video CLIs, 24 before the K-step call, 25 in each rank and in the one
 process before its Trainer runs, 26 before each suite config, 27 before
 its steps, 28 before the ResNet-50 predicts, each train CLI and the video
-CLI, 29 before each tool run) and read just after it; comparison and
-timing launches fall outside those windows.
+CLI, 29 and 30 before each tool run) and read just after it; comparison
+and timing launches fall outside those windows.
 """
 
 from __future__ import annotations
@@ -429,6 +446,15 @@ FAMILY_BLOCKS = ((256, 128, 2, 96), (512, 128, 1, 48))
 # crowding points "protocol@nms"; "exact" is each protocol's collision
 # bound, lost-person fraction and oracle ceilings at nms 0.3/0.45/0.6.
 TOOL_SWEEP_IMAGES, TOOL_CROWD_IMAGES = 64, 32
+# phase 30: the stage profilers' iterations (each timed row is a slope over
+# 1 + 9·iters calls and a profiler window), the batches of each run, and
+# (label, config, backbone or None) of the stage splits held bitwise
+SPLIT_ITERS = 1
+SPLIT_BWD_RUNS = (("resnet18", "mpii_r18_384", None, "32,128"),
+                  ("resnet34", "mpii_r18_384", "resnet34", "32"),
+                  ("resnet50", "mpii_r50_384", None, "32"))
+SPLIT_TRAIN_BATCH, SPLIT_FWD_BATCH, SPLIT_CHECK_BATCH = 32, 128, 8
+# (SPLIT_CHECK_BATCH: the images of the stage-composition checks)
 TOOL_TOLERANCE = 3e-3    # about one joint in 378
 # bf16 points known to miss TOOL_TOLERANCE on the card (bf16 rounding of the
 # logits reorders crowded detections: ROADMAP queue 3). Each may miss by no
@@ -2588,6 +2614,194 @@ def tools_phase(overfit_ckpt: str, fixed: dict, card: str) -> dict:
     return out
 
 
+def split_warp_launches(iters: int, rec: dict) -> int:
+    """``ppn_warp_kernel`` launches of one ``tools/torch_train_split.py``
+    run of every variant at ``iters``: ``full``'s first step, its host loop
+    and its profiler windows; ``augment_only``'s and ``full_body``'s slopes
+    and windows (``no_augment`` and the rest warp nothing). The windows a
+    row ran are read from its record (``device_busy_ms`` runs one again
+    when the profiler left kernels unrecorded)."""
+    from ppn_tpu_torch.utils.profiling import device_busy_ms
+
+    calls = default(device_busy_ms, "calls")
+    window = {k: calls * rec["device_busy_ms"][k]["windows"]
+              for k in ("full", "augment_only", "full_body")}
+    return ((1 + iters + window["full"])
+            + (slope_calls(iters) + window["augment_only"])
+            + (slope_calls(max(4, iters // 2)) + window["full_body"]))
+
+
+def split_checks(dev) -> dict:
+    """Phase 30's checks, each on fresh models and copies, under cuDNN's
+    deterministic algorithms: ``full_body`` against ``train_step(augment=
+    True)`` on the train split's batch (loss terms, ``grad_norm`` and the
+    updated parameters bitwise),
+    bwd_split's stages composed against ``backbone(x)`` for each backbone
+    of ``SPLIT_BWD_RUNS``, fwd_split's ``ingest`` ∘ ``blocks`` ∘ ``head``
+    against ``model(img)`` (bitwise), and the s2d stem against the 7×7
+    stem within ``BF16_TOL`` of the largest value, on the tool's own
+    model and images."""
+    from ppn_tpu_torch import configs
+    from ppn_tpu_torch.data.pipeline import collate
+    from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from ppn_tpu_torch.train.steps import (BATCH_KEYS, create_train_state,
+                                           train_step)
+    from tools import torch_bwd_split, torch_fwd_split, torch_train_split
+    from tools.torch_split_sweep import backbone_config
+
+    out = {}
+    cfg = configs.get_config("mpii_r18_384")
+    # the train split's batch: the same seeded images
+    ds = SyntheticPoseDataset(cfg, size=SPLIT_TRAIN_BATCH, seed=0,
+                              cache=True)
+    host = collate([ds[i] for i in range(SPLIT_TRAIN_BATCH)])
+    batch = {k: torch.from_numpy(host[k]).to(dev) for k in BATCH_KEYS}
+    state = create_train_state(cfg, device=dev)
+    a, b = (torch_train_split.copy_state(state) for _ in range(2))
+    want = train_step(cfg, a, batch, augment=True)
+    got = torch_train_split.full_body(cfg, b, batch)
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    out["full_body_is_train_step"] = (
+        set(got) == set(want)
+        and all(torch.equal(got[k], want[k]) for k in want)
+        and all(torch.equal(pa[n], pb[n]) for n in pa))
+    out["grad_norm"] = float(want["grad_norm"])
+
+    image = torch.rand((SPLIT_CHECK_BATCH, *cfg.model.insize, 3),
+                       generator=torch.Generator(dev).manual_seed(0),
+                       device=dev)
+    out["stages_compose"] = {}
+    for label, name, backbone, _ in SPLIT_BWD_RUNS:
+        with backbone_config(backbone):        # read at call time
+            model = create_train_state(configs.get_config(name),
+                                       device=dev).model.train()
+        inputs = torch_bwd_split.stage_inputs(model, image)
+        with torch.no_grad():
+            whole = model.backbone(inputs["stem"])
+        out["stages_compose"][label] = {
+            "stages": [len(s) for s in model.backbone.stages()],
+            "bitwise": bool(torch.equal(inputs["head"], whole)),
+            "channels_last": inputs["head"].is_contiguous(
+                memory_format=torch.channels_last)}
+
+    model = create_train_state(cfg, seed=0, device=dev).model.eval()
+    img = torch.from_numpy(np.random.default_rng(0).random(
+        (SPLIT_FWD_BATCH, *cfg.model.insize, 3), np.float32)).to(dev)
+    with torch.no_grad():
+        split = torch_fwd_split.head(model, torch_fwd_split.blocks(
+            model, torch_fwd_split.ingest(model, img)))
+        out["fwd_split_is_model"] = bool(torch.equal(split, model(img)))
+        stems = torch_fwd_split.stem_variants(model)
+        a7, s2d = stems["stem7"](img).float(), stems["s2d"](img).float()
+    out["s2d_max_abs_diff"] = float((a7 - s2d).abs().max())
+    out["stem7_max_abs"] = float(a7.abs().max())
+    return out
+
+
+def split_busy_rows(out: dict):
+    """(tool run, row, its device_busy_ms) of every row of phase 30's
+    records."""
+    for label, rec in out.items():
+        if label.startswith("bwd_split"):
+            for b in rec["batches"]:
+                for name, st in b["stages"].items():
+                    for kind, busy in st["device_busy_ms"].items():
+                        yield label, f"B={b['batch']} {name} {kind}", busy
+        elif label in ("train_split", "fwd_split"):
+            for row, busy in rec["device_busy_ms"].items():
+                yield label, row, busy
+
+
+def split_tools_phase(dev, card: str) -> dict:
+    """Phase 30: the stage profilers (``tools/torch_{train,bwd,fwd}_split.py``)
+    through their ``main`` on the card, after ``split_checks``; the warp
+    launches of the train split against ``split_warp_launches``, and no
+    post launch anywhere."""
+    from ppn_tpu_torch.ops import cuda_post, cuda_warp
+    from tools import torch_bwd_split, torch_fwd_split, torch_train_split
+    from tools.torch_split_sweep import backbone_config
+
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        checks = split_checks(dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[split] full_body bitwise train_step(augment=True) from copies: "
+        f"{checks['full_body_is_train_step']} (grad_norm "
+        f"{checks['grad_norm']:.6g}); stages composed bitwise backbone(x), "
+        f"B={SPLIT_CHECK_BATCH}: {checks['stages_compose']}; fwd_split "
+        f"ingest∘blocks∘head bitwise model(img) at B={SPLIT_FWD_BATCH}: "
+        f"{checks['fwd_split_is_model']}; s2d stem against the 7×7 stem: "
+        f"max|Δ| {checks['s2d_max_abs_diff']:.4g} of max|y| "
+        f"{checks['stem7_max_abs']:.4g} (limit {BF16_TOL} of it) | {card}")
+    if (not checks["full_body_is_train_step"]
+            or not checks["fwd_split_is_model"]
+            or not all(c["bitwise"] and c["channels_last"]
+                       for c in checks["stages_compose"].values())
+            or [c["stages"] for c in checks["stages_compose"].values()] != [
+                [2, 2, 2, 2], [3, 4, 6, 3], [3, 4, 6, 3]]
+            or not checks["s2d_max_abs_diff"]
+            <= BF16_TOL * checks["stem7_max_abs"]):
+        raise AssertionError(f"stage profiler checks: {checks}")
+
+    out, launches = {"checks": checks}, {}
+
+    def run(label, tool, argv, backbone=None):
+        cuda_post.LAUNCHES = cuda_warp.LAUNCHES = 0
+        with backbone_config(backbone):
+            rec, _ = quiet_call(tool.main, argv + [
+                "--iters", str(SPLIT_ITERS), "--device", str(dev)])
+        launches[label] = [cuda_post.LAUNCHES, cuda_warp.LAUNCHES]
+        out[label] = rec
+        return rec
+
+    rec = run("train_split", torch_train_split,
+              ["--batch", str(SPLIT_TRAIN_BATCH)])
+    busy = {k: round(v["total"], 3) for k, v in rec["device_busy_ms"].items()}
+    log(f"[split] torch_train_split mpii_r18_384 B={SPLIT_TRAIN_BATCH}: "
+        f"full step {rec['full_step_ms']} ms, no_augment "
+        f"{rec['no_augment_step_ms']} ms, device_ms {rec['device_ms']}, "
+        f"busy ms {busy}, host_bound {rec['host_bound']} | {card}")
+    for label, name, backbone, batches in SPLIT_BWD_RUNS:
+        rec = run(f"bwd_split_{label}", torch_bwd_split,
+                  ["--config", name, "--batches", batches], backbone)
+        for row in rec["batches"]:
+            log(f"[split] torch_bwd_split {label} B={row['batch']}: "
+                f"fwd {row['sum_fwd_ms']} ms, fwd+bwd {row['sum_fwdbwd_ms']}"
+                f" ms; by stage fwd+bwd (busy, host-bound) " + ", ".join(
+                    f"{n} {st['fwdbwd_ms']} "
+                    f"({st['device_busy_ms']['fwdbwd']['total']:.3f}, "
+                    f"{st['host_bound']['fwdbwd']})"
+                    for n, st in row["stages"].items()) + f" | {card}")
+    rec = run("fwd_split", torch_fwd_split,
+              ["--batch", str(SPLIT_FWD_BATCH)])
+    log(f"[split] torch_fwd_split mpii_r18_384 B={SPLIT_FWD_BATCH}: " +
+        ", ".join(f"{k} {v}" for k, v in rec.items() if k != "device_busy_ms"
+                  and (k.endswith("_ms") or k == "s2d_max_abs_diff"))
+        + f"; host_bound {rec['host_bound']} | {card}")
+
+    want_warp = split_warp_launches(SPLIT_ITERS, out["train_split"])
+    out["launches"] = launches
+    out["warp_launches_expected"] = want_warp
+    log(f"[split] launches (post, warp) per tool run: {launches}; "
+        f"ppn_warp_kernel expected in the train split {want_warp}")
+    out["rows_missing_kernels"] = missing = [
+        (label, row) for label, row, busy in split_busy_rows(out)
+        if busy["recorded"] < 1.0]
+    log(f"[split] rows whose profiler windows left kernels unrecorded "
+        f"(busy a lower bound there, host_bound None): {missing} | {card}")
+    if (launches["train_split"] != [0, want_warp]
+            or any(v != [0, 0] for k, v in launches.items()
+                   if k != "train_split")):
+        raise AssertionError(f"stage profiler launches: {launches}, "
+                             f"expected warp {want_warp}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[split] phase 30 took {out['seconds']:.1f} s | {card}")
+    return out
+
+
 def model_points(label: str, run, pins: dict, card: str) -> dict:
     """Phase 29's check of a tool's model PCKh points: ``run(dtype)`` runs
     the tool with its forward computing in ``dtype`` ("bf16", the config's
@@ -3375,7 +3589,10 @@ def main() -> int:
     # ---- 29. the accuracy tools ---------------------------------------------
     tools = tools_phase(family.pop("overfit_ckpt"), fixed, card)
 
-    # ---- 30. report ---------------------------------------------------------
+    # ---- 30. the stage profilers ---------------------------------------------
+    split = split_tools_phase(dev, card)
+
+    # ---- 31. report ---------------------------------------------------------
     k_ms, p_ms, bound, whole, eager_ms, call_us = times[B]
     k1_ms, p1_ms, bound1, whole1, eager1_ms, call1_us = times[1]
     log(json.dumps({"serving_slice": {
@@ -3400,6 +3617,7 @@ def main() -> int:
     log(json.dumps({"parity_leftovers": leftovers}))
     log(json.dumps({"model_family": family}))
     log(json.dumps({"accuracy_tools": tools}))
+    log(json.dumps({"stage_profilers": split}))
     log(card)   # the nvidia-smi name,power.limit line, as it prints it
     log(json.dumps({"kernels": [{
         "name": "ppn_post_kernel", "route": "cuda",
@@ -3477,6 +3695,7 @@ def main() -> int:
         "ms_224_b32": family["warp"]["ms"],
         "plain_ms_224_b32": family["warp"]["plain_ms"],
         "bound_ms_224_b32": family["warp"]["bound_ms"],
+        "launches_split_tools": split["launches"]["train_split"][1],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

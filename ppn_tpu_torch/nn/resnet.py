@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 from typing import Sequence
 
 import torch
@@ -227,11 +228,22 @@ class ResNet(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.out_features = cin
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 3, H, W) → (B, C, H/32, W/32)."""
+    def stem_pool(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W) → (B, 64, H/4, W/4): the stem conv, ReLU and the
+        3×3/2 max-pool (``SAME``, padded with -inf)."""
         x = F.relu(self.stem(x.to(self.dtype)))
         x, pad = pad_same(x, 3, 2, value=float("-inf"))
-        x = F.max_pool2d(x, 3, 2, padding=pad)
+        return F.max_pool2d(x, 3, 2, padding=pad)
+
+    def stages(self) -> list[nn.ModuleList]:
+        """The blocks of each stage, split at the cumulative
+        ``stage_sizes`` (ResNet-34 and -50: 3, 4, 6 and 3 blocks)."""
+        ends = list(itertools.accumulate(self.stage_sizes))
+        return [self.blocks[a:b] for a, b in zip([0] + ends, ends)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W) → (B, C, H/32, W/32)."""
+        x = self.stem_pool(x)
         for block in self.blocks:
             x = block(x)
         return x

@@ -180,11 +180,25 @@ def loss_and_grads(cfg: Config, state: TrainState, batch,
     targets = enc.encode_batch(m, batch["keypoints"], batch["visible"],
                                batch["bboxes"], batch["valid"])
     with global_batch_stats(group):
-        _, terms = ppn_loss(m, model(batch["image"]), targets)
+        return forward_backward(cfg, model, batch["image"], targets)
+
+
+def forward_backward(cfg: Config, model: PoseProposalNet,
+                     images: torch.Tensor, targets
+                     ) -> tuple[Dict[str, torch.Tensor],
+                                Dict[str, torch.Tensor]]:
+    """The loss of ``model`` on ``images`` against encoded ``targets``, then
+    its backward: (loss terms, gradients by parameter name)."""
+    _, terms = ppn_loss(cfg.model, model(images), targets)
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(terms["loss_total"], params)
     return ({k: v.detach() for k, v in terms.items()},
             dict(zip(names, grads)))
+
+
+def grad_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The global norm of the gradients, summed in ``grads``' order."""
+    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()))
 
 
 def average_over_data(mesh, tensors: Dict[str, torch.Tensor]
@@ -242,8 +256,7 @@ def train_step(cfg: Config, state: TrainState, batch,
     both = average_over_data(mesh, {**grads, **terms})
     grads = {n: both[n] for n in grads}
     terms = {k: both[k] for k in terms}
-    terms["grad_norm"] = torch.sqrt(
-        sum(torch.sum(torch.square(g)) for g in grads.values()))
+    terms["grad_norm"] = grad_norm(grads)
     sgd_update(cfg, state, grads)
     return terms
 

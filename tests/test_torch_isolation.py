@@ -8,7 +8,9 @@ grain, tensorflow and tensorboard are forbidden too: importing
 ``torch.utils.tensorboard`` loads tensorflow, which loads jax; the card's
 machine has none of the three. Nor has it ``google.protobuf``, so the
 port's TensorBoard writer (utils/tb_events.py) encodes its records by
-hand."""
+hand. Nor does any of them import the JAX tools' ``tools/_artifact.py``,
+which writes into ``artifacts/`` by default: the port's tools write a file
+only when given ``--out``."""
 
 import ast
 import os
@@ -19,7 +21,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ppn_tpu", "grain",
-             "tensorflow", "tensorboard", "google.protobuf")
+             "tensorflow", "tensorboard", "google.protobuf",
+             "tools._artifact")
 
 
 def _port_files():

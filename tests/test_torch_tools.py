@@ -3,6 +3,9 @@ crowding_study,export_snapshot}.py) against the JAX package's
 (tools/{oracle_ceiling,threshold_sweep,crowding_study,export_snapshot}.py)
 on the CPU: each case runs the JAX tool's ``main`` and the port tool's
 ``main(["--device", "cpu", ...])`` on the same arguments at a small size.
+The stage profilers (tools/torch_{train,bwd,fwd}_split.py and their sweep)
+join the first test, that every tool raises without CUDA; their CPU
+checks are in tests/test_torch_split_tools.py.
 
 Tolerances:
   * oracle ceilings, collision bounds and lost-person fractions: equal.
@@ -37,8 +40,10 @@ import torch
 from tools import crowding_study as jax_crowding
 from tools import oracle_ceiling as jax_oracle
 from tools import threshold_sweep as jax_sweep
-from tools import (torch_crowding_study, torch_export_snapshot,
-                   torch_oracle_ceiling, torch_threshold_sweep)
+from tools import (torch_bwd_split, torch_crowding_study,
+                   torch_export_snapshot, torch_fwd_split,
+                   torch_oracle_ceiling, torch_split_sweep,
+                   torch_threshold_sweep, torch_train_split)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MPII = os.path.join(ROOT, "artifacts", "mpii_hero_r5_ema_f16.npz")
@@ -67,7 +72,11 @@ def _printed(capsys, main, argv):
     (torch_threshold_sweep, ["--ckpt-dir", MPII, "--size", "1"]),
     (torch_crowding_study, ["--protocols", "1", "--size", "1"]),
     (torch_export_snapshot, ["--config", "tiny_test", "--ckpt-dir", "none",
-                             "--out", "none.npz"])])
+                             "--out", "none.npz"]),
+    (torch_train_split, ["--config", "tiny_test", "--batch", "1"]),
+    (torch_bwd_split, ["--config", "tiny_test", "--batches", "1"]),
+    (torch_fwd_split, ["--config", "tiny_test", "--batch", "1"]),
+    (torch_split_sweep, ["--out", "none.jsonl"])])
 def test_tools_run_on_cuda_and_raise_without_it(monkeypatch, tool, argv):
     """``--device`` defaults to cuda; without a GPU a tool raises before it
     does any work, with no fallback to the CPU."""
