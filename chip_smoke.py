@@ -268,18 +268,18 @@ Phases, each raising on failure:
                of the in-memory eval model with parameters and statistics
                rounded through f16 (cuDNN's deterministic algorithms); the
                phase's time;
-30. stage profilers — checks first, on fresh copies under cuDNN's
-               deterministic algorithms: ``tools/torch_train_split.py``'s
-               ``full_body`` bitwise ``train_step(augment=True)`` (loss
-               terms, ``grad_norm``, parameters), ``torch_bwd_split.py``'s
+30. stage profilers — checks first, on fresh models under cuDNN's
+               deterministic algorithms: ``tools/torch_bwd_split.py``'s
                stages (split at the cumulative ``stage_sizes``) composed
                bitwise ``backbone(x)`` on ResNet-18, -34 and -50 in
                channels_last, ``torch_fwd_split.py``'s ingest ∘ blocks ∘
                head bitwise ``model(img)``, its s2d stem within 3e-2 of
                the largest value of the 7×7 stem; then each tool through
                its ``main`` at ``SPLIT_ITERS``: the train split on
-               mpii_r18_384 at B=32 (every variant), bwd_split on
-               ResNet-18 at B=32 and 128 and on ResNet-34 and -50 at B=32,
+               mpii_r18_384 at B=32 (every variant; ``full_body`` is
+               ``train_step`` on a copy of the state), bwd_split on
+               ResNet-18 at B=32 and 128 with its 21 BatchNorm layers
+               also timed alone, and on ResNet-34 and -50 at B=32,
                fwd_split at B=128 with the s2d A/B; ``ppn_warp_kernel``
                launches equal to what the train split's calls imply
                (``split_warp_launches``), none elsewhere, no post launch;
@@ -447,12 +447,15 @@ FAMILY_BLOCKS = ((256, 128, 2, 96), (512, 128, 1, 48))
 # bound, lost-person fraction and oracle ceilings at nms 0.3/0.45/0.6.
 TOOL_SWEEP_IMAGES, TOOL_CROWD_IMAGES = 64, 32
 # phase 30: the stage profilers' iterations (each timed row is a slope over
-# 1 + 9·iters calls and a profiler window), the batches of each run, and
-# (label, config, backbone or None) of the stage splits held bitwise
+# 1 + 9·iters calls and a profiler window), and (label, config, model
+# fields replaced, batches) of the bwd split runs, whose stages are held
+# bitwise; the ResNet-18 run also times its BatchNorm layers alone
 SPLIT_ITERS = 1
-SPLIT_BWD_RUNS = (("resnet18", "mpii_r18_384", None, "32,128"),
-                  ("resnet34", "mpii_r18_384", "resnet34", "32"),
-                  ("resnet50", "mpii_r50_384", None, "32"))
+SPLIT_BWD_RUNS = (("resnet18", "mpii_r18_384", {}, "32,128"),
+                  ("resnet34", "mpii_r18_384", {"backbone": "resnet34"}, "32"),
+                  ("resnet50", "mpii_r50_384", {}, "32"))
+SPLIT_BN_LAYERS = 21       # ResNet-18's BatchNorms: stem, 16 in blocks, 3
+                           # projections, the head's
 SPLIT_TRAIN_BATCH, SPLIT_FWD_BATCH, SPLIT_CHECK_BATCH = 32, 128, 8
 # (SPLIT_CHECK_BATCH: the images of the stage-composition checks)
 TOOL_TOLERANCE = 3e-3    # about one joint in 378
@@ -2525,7 +2528,7 @@ def tools_phase(overfit_ckpt: str, fixed: dict, card: str) -> dict:
 
         def sweep(dtype, argv=argv, label=label):
             cuda_post.LAUNCHES = 0
-            with computing_in(dtype):
+            with replacing_config(train=COMPUTE_FIELDS[dtype]):
                 _, printed = quiet_call(torch_threshold_sweep.main, argv)
             points = {f"{r['det']}/{r['nms']}": r["pckh_mean"] for r in (
                 json.loads(line) for line in printed.splitlines()
@@ -2548,7 +2551,8 @@ def tools_phase(overfit_ckpt: str, fixed: dict, card: str) -> dict:
                 "--nms-grid", "0.3,0.45,0.6"]
         cuda_post.LAUNCHES = 0
         with tempfile.TemporaryDirectory(dir=os.path.join(
-                ROOT, "build")) as d, computing_in(dtype):
+                ROOT, "build")) as d, replacing_config(
+                    train=COMPUTE_FIELDS[dtype]):
             path = os.path.join(d, "study.json")
             quiet_call(torch_crowding_study.main, argv + ["--out", path])
             with open(path) as fh:
@@ -2632,47 +2636,25 @@ def split_warp_launches(iters: int, rec: dict) -> int:
 
 
 def split_checks(dev) -> dict:
-    """Phase 30's checks, each on fresh models and copies, under cuDNN's
-    deterministic algorithms: ``full_body`` against ``train_step(augment=
-    True)`` on the train split's batch (loss terms, ``grad_norm`` and the
-    updated parameters bitwise),
-    bwd_split's stages composed against ``backbone(x)`` for each backbone
-    of ``SPLIT_BWD_RUNS``, fwd_split's ``ingest`` ∘ ``blocks`` ∘ ``head``
-    against ``model(img)`` (bitwise), and the s2d stem against the 7×7
-    stem within ``BF16_TOL`` of the largest value, on the tool's own
-    model and images."""
+    """Phase 30's checks, each on fresh models, under cuDNN's
+    deterministic algorithms: bwd_split's stages composed against
+    ``backbone(x)`` for each backbone of ``SPLIT_BWD_RUNS``, fwd_split's
+    ``ingest`` ∘ ``blocks`` ∘ ``head`` against ``model(img)`` (bitwise),
+    and the s2d stem against the 7×7 stem within ``BF16_TOL`` of the
+    largest value, on the tool's own model and images. (The train split's
+    ``full_body`` is ``train_step`` itself, on a ``copy_state`` copy.)"""
     from ppn_tpu_torch import configs
-    from ppn_tpu_torch.data.pipeline import collate
-    from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
-    from ppn_tpu_torch.train.steps import (BATCH_KEYS, create_train_state,
-                                           train_step)
-    from tools import torch_bwd_split, torch_fwd_split, torch_train_split
-    from tools.torch_split_sweep import backbone_config
+    from ppn_tpu_torch.train.steps import create_train_state
+    from tools import torch_bwd_split, torch_fwd_split
 
     out = {}
     cfg = configs.get_config("mpii_r18_384")
-    # the train split's batch: the same seeded images
-    ds = SyntheticPoseDataset(cfg, size=SPLIT_TRAIN_BATCH, seed=0,
-                              cache=True)
-    host = collate([ds[i] for i in range(SPLIT_TRAIN_BATCH)])
-    batch = {k: torch.from_numpy(host[k]).to(dev) for k in BATCH_KEYS}
-    state = create_train_state(cfg, device=dev)
-    a, b = (torch_train_split.copy_state(state) for _ in range(2))
-    want = train_step(cfg, a, batch, augment=True)
-    got = torch_train_split.full_body(cfg, b, batch)
-    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
-    out["full_body_is_train_step"] = (
-        set(got) == set(want)
-        and all(torch.equal(got[k], want[k]) for k in want)
-        and all(torch.equal(pa[n], pb[n]) for n in pa))
-    out["grad_norm"] = float(want["grad_norm"])
-
     image = torch.rand((SPLIT_CHECK_BATCH, *cfg.model.insize, 3),
                        generator=torch.Generator(dev).manual_seed(0),
                        device=dev)
     out["stages_compose"] = {}
-    for label, name, backbone, _ in SPLIT_BWD_RUNS:
-        with backbone_config(backbone):        # read at call time
+    for label, name, fields, _ in SPLIT_BWD_RUNS:
+        with replacing_config(model=fields):    # read at call time
             model = create_train_state(configs.get_config(name),
                                        device=dev).model.train()
         inputs = torch_bwd_split.stage_inputs(model, image)
@@ -2704,7 +2686,10 @@ def split_busy_rows(out: dict):
     for label, rec in out.items():
         if label.startswith("bwd_split"):
             for b in rec["batches"]:
-                for name, st in b["stages"].items():
+                rows = {**b["stages"], **(
+                    {"batch_norm": b["batch_norm"]} if "batch_norm" in b
+                    else {})}
+                for name, st in rows.items():
                     for kind, busy in st["device_busy_ms"].items():
                         yield label, f"B={b['batch']} {name} {kind}", busy
         elif label in ("train_split", "fwd_split"):
@@ -2719,7 +2704,6 @@ def split_tools_phase(dev, card: str) -> dict:
     post launch anywhere."""
     from ppn_tpu_torch.ops import cuda_post, cuda_warp
     from tools import torch_bwd_split, torch_fwd_split, torch_train_split
-    from tools.torch_split_sweep import backbone_config
 
     t_phase = time.perf_counter()
     deterministic = torch.backends.cudnn.deterministic
@@ -2728,16 +2712,13 @@ def split_tools_phase(dev, card: str) -> dict:
         checks = split_checks(dev)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    log(f"[split] full_body bitwise train_step(augment=True) from copies: "
-        f"{checks['full_body_is_train_step']} (grad_norm "
-        f"{checks['grad_norm']:.6g}); stages composed bitwise backbone(x), "
-        f"B={SPLIT_CHECK_BATCH}: {checks['stages_compose']}; fwd_split "
-        f"ingest∘blocks∘head bitwise model(img) at B={SPLIT_FWD_BATCH}: "
+    log(f"[split] stages composed bitwise backbone(x), B={SPLIT_CHECK_BATCH}"
+        f": {checks['stages_compose']}; fwd_split ingest∘blocks∘head "
+        f"bitwise model(img) at B={SPLIT_FWD_BATCH}: "
         f"{checks['fwd_split_is_model']}; s2d stem against the 7×7 stem: "
         f"max|Δ| {checks['s2d_max_abs_diff']:.4g} of max|y| "
         f"{checks['stem7_max_abs']:.4g} (limit {BF16_TOL} of it) | {card}")
-    if (not checks["full_body_is_train_step"]
-            or not checks["fwd_split_is_model"]
+    if (not checks["fwd_split_is_model"]
             or not all(c["bitwise"] and c["channels_last"]
                        for c in checks["stages_compose"].values())
             or [c["stages"] for c in checks["stages_compose"].values()] != [
@@ -2748,9 +2729,9 @@ def split_tools_phase(dev, card: str) -> dict:
 
     out, launches = {"checks": checks}, {}
 
-    def run(label, tool, argv, backbone=None):
+    def run(label, tool, argv, fields=None):
         cuda_post.LAUNCHES = cuda_warp.LAUNCHES = 0
-        with backbone_config(backbone):
+        with replacing_config(model=fields or {}):
             rec, _ = quiet_call(tool.main, argv + [
                 "--iters", str(SPLIT_ITERS), "--device", str(dev)])
         launches[label] = [cuda_post.LAUNCHES, cuda_warp.LAUNCHES]
@@ -2764,9 +2745,10 @@ def split_tools_phase(dev, card: str) -> dict:
         f"full step {rec['full_step_ms']} ms, no_augment "
         f"{rec['no_augment_step_ms']} ms, device_ms {rec['device_ms']}, "
         f"busy ms {busy}, host_bound {rec['host_bound']} | {card}")
-    for label, name, backbone, batches in SPLIT_BWD_RUNS:
+    for label, name, fields, batches in SPLIT_BWD_RUNS:
+        bn = ["--batch-norm"] if label == "resnet18" else []
         rec = run(f"bwd_split_{label}", torch_bwd_split,
-                  ["--config", name, "--batches", batches], backbone)
+                  ["--config", name, "--batches", batches] + bn, fields)
         for row in rec["batches"]:
             log(f"[split] torch_bwd_split {label} B={row['batch']}: "
                 f"fwd {row['sum_fwd_ms']} ms, fwd+bwd {row['sum_fwdbwd_ms']}"
@@ -2775,6 +2757,21 @@ def split_tools_phase(dev, card: str) -> dict:
                     f"({st['device_busy_ms']['fwdbwd']['total']:.3f}, "
                     f"{st['host_bound']['fwdbwd']})"
                     for n, st in row["stages"].items()) + f" | {card}")
+            if "batch_norm" in row:
+                norm = row["batch_norm"]
+                kinds = {k: {c: round(v, 3) for c, v in b.items()
+                             if c not in ("recorded", "windows")}
+                         for k, b in norm["device_busy_ms"].items()}
+                log(f"[split] {label} B={row['batch']}: its "
+                    f"{norm['layers']} BatchNorm layers alone: fwd "
+                    f"{norm['fwd_ms']} ms, fwd+bwd {norm['fwdbwd_ms']} ms, "
+                    f"busy by category {kinds}, host-bound "
+                    f"{norm['host_bound']} | {card}")
+        bn_layers = [row["batch_norm"]["layers"] for row in rec["batches"]
+                     if "batch_norm" in row]
+        if bn and bn_layers != [SPLIT_BN_LAYERS] * len(rec["batches"]):
+            raise AssertionError(f"{label}: BatchNorm layers timed "
+                                 f"{bn_layers}, expected {SPLIT_BN_LAYERS}")
     rec = run("fwd_split", torch_fwd_split,
               ["--batch", str(SPLIT_FWD_BATCH)])
     log(f"[split] torch_fwd_split mpii_r18_384 B={SPLIT_FWD_BATCH}: " +
@@ -2835,23 +2832,29 @@ def model_points(label: str, run, pins: dict, card: str) -> dict:
     return out
 
 
+# phase 29: the train fields that make a tool's forward compute in a dtype
+COMPUTE_FIELDS = {"bf16": {}, "f32": {"dtype": "float32"}}
+
+
 @contextlib.contextmanager
-def computing_in(dtype: str):
-    """With ``dtype`` "f32", ``ppn_tpu_torch.configs.get_config`` gives each
-    config with ``train.dtype`` float32 (the tools read their config
-    through it, so their forward computes in f32); with "bf16" the configs
-    as they are."""
+def replacing_config(**sections):
+    """While open, ``ppn_tpu_torch.configs.get_config`` gives each config
+    with the fields of each named section replaced, as in
+    ``replacing_config(model={"backbone": "resnet34"})`` or
+    ``replacing_config(train={"dtype": "float32"})``. The tools read their
+    config through it at call time, so this sets what they take no flag
+    for."""
     from ppn_tpu_torch import configs
 
     get = configs.get_config
 
-    def get_f32(name, **overrides):
+    def patched(name, **overrides):
         cfg = get(name, **overrides)
-        return dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, dtype="float32"))
+        return dataclasses.replace(cfg, **{
+            k: dataclasses.replace(getattr(cfg, k), **v)
+            for k, v in sections.items()})
 
-    if dtype == "f32":
-        configs.get_config = get_f32
+    configs.get_config = patched
     try:
         yield
     finally:

@@ -11,14 +11,18 @@ What is held:
     parameter gradients, and the input's gradient but at the stem), f32 in
     training mode, against Flax's ``jax.vjp`` of the same stage on the
     same input, weights carried over by ``utils/params_io``, within
-    ``F32_TOL`` of each tensor's largest value: ResNet-18 and ResNet-34,
-    whose 3/4/6/3 stages the JAX tool's ``len(blocks) // 4`` splits wrongly;
+    ``F32_TOL`` of each tensor's largest value: ResNet-18, and ResNet-34's
+    s1–s4, whose 3/4/6/3 split the JAX tool's ``len(blocks) // 4`` gets
+    wrong;
   * the stages composed bitwise ``backbone(x)`` for all three backbones,
     and fwd_split's ``ingest`` ∘ ``blocks`` ∘ ``head`` bitwise
     ``model(img)``: the same calls in the same order;
-  * train_split's ``full_body`` bitwise ``train_step(augment=True)`` from
-    copies of one state, and ``fwdbwd_only`` bitwise
+  * train_split's ``full_body`` row, ``train_step(augment=True)`` on a
+    ``copy_state`` copy: the copy steps bitwise as the state it came from
+    and leaves that state as it was; ``fwdbwd_only`` bitwise
     ``steps.loss_and_grads``;
+  * bwd_split's ``--batch-norm``: every BatchNorm layer timed once, on the
+    input the stages' forward gave it;
   * each tool's record from ``main(["--device", "cpu", ...])`` with the
     JAX tool's keys (listed from its source) plus ``device_busy_ms`` and
     ``host_bound``, which are None on the CPU: it records no device work.
@@ -128,7 +132,9 @@ def test_bwd_stages_match_flax_vjp(backbone, sizes):
     off its f64 run on the stem's weight gradient, where the cotangent
     ``y`` cancels through the training-mode BatchNorm backward, and the
     port's f32 run 4.3e-6, so the exact reference is the one that can
-    hold the port to ``F32_TOL``."""
+    hold the port to ``F32_TOL``. ResNet-34 holds s1–s4, the stages its
+    3/4/6/3 split makes: its stem and head are ResNet-18's modules, held
+    in that case."""
     jcfg, cfg = _configs(backbone)
     with jax.enable_x64(True):
         graphdef, flat, treedef = _jax_template(jcfg.model, jnp.float64)
@@ -156,7 +162,8 @@ def test_bwd_stages_match_flax_vjp(backbone, sizes):
             m.train()
             return m
 
-        for name in names:
+        held = names if backbone == "resnet18" else names[1:-1]
+        for name in held:
             x = inputs[name]
             y = torch_bwd_split.stage_fn(model, name)(x)
             grads = torch_bwd_split.fwdbwd_fn(model, name, x)()
@@ -243,21 +250,26 @@ def _params(state):
 
 
 def test_full_body_is_train_step(tiny_step):
-    cfg, state, batch = tiny_step
+    cfg, _, batch = tiny_step
+    state = create_train_state(cfg, device="cpu")
     before = _params(state)
-    a, b = (torch_train_split.copy_state(state) for _ in range(2))
-    want = train_step(cfg, a, batch, augment=True)
-    got = torch_train_split.full_body(cfg, b, batch)
+    b = torch_train_split.copy_state(state)
+    got = train_step(cfg, b, batch, augment=True)
+    # the copy shared nothing with the state it came from
+    assert all(torch.equal(p, before[n]) for n, p in _params(state).items())
+    want = train_step(cfg, state, batch, augment=True)
     assert set(got) == set(want) and "grad_norm" in got
     for k in want:
         assert torch.equal(got[k], want[k]), k
+    after = _params(state)
     for n, p in _params(b).items():
-        assert torch.equal(p, _params(a)[n]), n
-        assert torch.equal(b.trace[n], a.trace[n]), n
-    assert torch.equal(b.generator.get_state(), a.generator.get_state())
-    assert b.step == a.step == state.step + 1
-    # the copies shared nothing with the state they came from
-    assert all(torch.equal(p, before[n]) for n, p in _params(state).items())
+        assert torch.equal(p, after[n]), n
+        assert torch.equal(b.trace[n], state.trace[n]), n
+    assert (b.ema is None) == (state.ema is None)
+    for n, t in (state.ema or {}).items():
+        assert torch.equal(b.ema[n], t), n
+    assert torch.equal(b.generator.get_state(), state.generator.get_state())
+    assert b.step == state.step
 
 
 def test_fwdbwd_only_is_loss_and_grads(tiny_step):
@@ -391,11 +403,40 @@ def test_bwd_split_record_has_the_jax_keys(capsys):
 
     rec = torch_bwd_split.main(["--device", "cpu", "--config", "tiny_test",
                                 "--batches", "1", "--iters", "1",
-                                "--stages", "head", "--skip-fwd"])
+                                "--stages", "head", "--skip-fwd",
+                                "--batch-norm"])
     (row,) = rec["batches"]
-    assert set(row) == {"batch", "stages", "sum_fwdbwd_ms"}
+    assert set(row) == {"batch", "stages", "sum_fwdbwd_ms", "batch_norm"}
     assert set(row["stages"]["head"]) == {"fwdbwd_ms", "ms_per_img_fwdbwd"
                                           } | PORT_KEYS
+    # the port's --batch-norm entry: every BatchNorm layer alone
+    assert set(row["batch_norm"]) == {"layers", "fwd_ms", "fwdbwd_ms",
+                                      "device_busy_ms", "host_bound"}
+    assert row["batch_norm"]["layers"] == 21
+    assert row["batch_norm"]["device_busy_ms"] == {"fwd": None,
+                                                   "fwdbwd": None}
+    assert "B=1 batch_norm (21 layers): fwd " in capsys.readouterr().out
+
+
+def test_bwd_split_times_each_batch_norm_layer_alone():
+    from ppn_tpu_torch.nn.resnet import BatchNorm
+
+    _, cfg = _configs()
+    torch.manual_seed(0)
+    model = PoseProposalNet(cfg.model).train()
+    calls = torch_bwd_split.batch_norm_calls(model, _image(cfg, 2))
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    assert len(calls) == len(layers) == 21
+    assert {id(layer) for layer, _ in calls} == {id(m) for m in layers}
+    # the stem's BatchNorm takes the stem conv's output
+    x = _image(cfg, 2).to(model.dtype).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        assert torch.equal(calls[0][1], model.backbone.stem.conv(x))
+    fwd, fwdbwd = torch_bwd_split.batch_norm_fns(calls)
+    for (layer, x), y, grads in zip(calls, fwd(), fwdbwd()):
+        assert y.shape == x.shape
+        assert [g.shape for g in grads] == [x.shape, layer.weight.shape,
+                                            layer.bias.shape]
 
 
 def test_bwd_split_refuses_fwd_only_with_skip_fwd():

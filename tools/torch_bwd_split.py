@@ -25,9 +25,15 @@ device work it measures the host) and ``device_busy_ms`` (kernel time per
 call over a profiler window, by ``tools/torch_predict_profile._category``);
 ``host_bound`` where the first exceeds the second by more than 10%.
 
+``--batch-norm`` adds a ``batch_norm`` entry to each batch's row: every
+BatchNorm layer of the model alone, each on the input the stages' forward
+gave it, forward and forward+VJP (over its input, scale and bias, the
+output as the cotangent) summed over the layers, timed as a stage is.
+
     python tools/torch_bwd_split.py [--config mpii_r18_384] \
         [--batches 32,64,128] [--stages stem,s1,s2,s3,s4,head] \
-        [--fwd-only | --skip-fwd] [--out F] [--device cuda|cpu]
+        [--fwd-only | --skip-fwd] [--batch-norm] [--out F] \
+        [--device cuda|cpu]
 
 Writes a file only when given ``--out``.
 """
@@ -106,6 +112,44 @@ def fwdbwd_fn(model, name: str, x):
     return run
 
 
+def batch_norm_calls(model, image) -> list:
+    """[(BatchNorm layer, its input)] in the order ``stage_inputs``' pass
+    over ``image`` runs them."""
+    from ppn_tpu_torch.nn.resnet import BatchNorm
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda layer, args: calls.append((layer, args[0])))
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    try:
+        stage_inputs(model, image)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def batch_norm_fns(calls):
+    """(forward, forward+VJP) of every layer of ``calls`` on its input, in
+    turn; the VJP over the input, scale and bias, the output its
+    cotangent."""
+    xs = [x.detach().requires_grad_() for _, x in calls]
+
+    def fwd():
+        with torch.no_grad():
+            return [layer(x) for layer, x in calls]
+
+    def fwdbwd():
+        grads = []
+        for (layer, _), x in zip(calls, xs):
+            y = layer(x)
+            grads.append(torch.autograd.grad(
+                y, (x, layer.weight, layer.bias), grad_outputs=y.detach()))
+        return grads
+
+    return fwd, fwdbwd
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", default="mpii_r18_384")
@@ -118,6 +162,8 @@ def main(argv=None):
                       help="skip the vjp probes (fwd rows only)")
     only.add_argument("--skip-fwd", action="store_true",
                       help="fwd+bwd rows only")
+    p.add_argument("--batch-norm", action="store_true",
+                   help="also time the BatchNorm layers alone")
     p.add_argument("--out", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda unless asked otherwise)")
@@ -182,6 +228,20 @@ def main(argv=None):
             print(f"B={B} {name}: fwd "
                   f"{'-' if d_f is None else f'{d_f:.3f}'} | "
                   f"fwd+bwd {d_fb:.3f} ms", flush=True)
+        if args.batch_norm:
+            calls = batch_norm_calls(model, image)
+            fwd, fwdbwd = batch_norm_fns(calls)
+            busy, bound = {}, {}
+            d_f, busy["fwd"], bound["fwd"] = timed(fwd)
+            d_fb, busy["fwdbwd"], bound["fwdbwd"] = timed(fwdbwd)
+            row["batch_norm"] = {"layers": len(calls),
+                                 "fwd_ms": round(d_f, 3),
+                                 "fwdbwd_ms": round(d_fb, 3),
+                                 "device_busy_ms": busy,
+                                 "host_bound": bound}
+            del calls, fwd, fwdbwd      # the layers' inputs, before the next B
+            print(f"B={B} batch_norm ({row['batch_norm']['layers']} layers):"
+                  f" fwd {d_f:.3f} | fwd+bwd {d_fb:.3f} ms", flush=True)
         if not args.skip_fwd:
             row["sum_fwd_ms"] = round(total_f, 3)
         if not args.fwd_only:

@@ -15,8 +15,8 @@ calls:
     fwdbwd_only   — ``steps.forward_backward`` on precomputed targets and
                     the gradients' global norm
     opt_ema_only  — ``steps.sgd_update`` on fixed gradients
-    full_body     — the whole step: ``steps.loss_and_grads(augment=True)``,
-                    ``grad_norm``, ``sgd_update``
+    full_body     — ``train_step(augment=True)`` as a slope, like the
+                    pieces
 
 Every variant that changes state (the model's BatchNorm statistics, the
 momentum traces, the EMA, the augmentation's generator) runs on its own
@@ -77,19 +77,6 @@ def fwdbwd_only(cfg, model, images, targets):
 
     terms, grads = forward_backward(cfg, model, images, targets)
     return terms, grads, grad_norm(grads)
-
-
-def full_body(cfg, state, batch):
-    """One whole step on ``state`` in place: ``train_step(augment=True)``'s
-    calls in its order without a process group. Returns the loss terms and
-    ``grad_norm``."""
-    from ppn_tpu_torch.train.steps import (grad_norm, loss_and_grads,
-                                           sgd_update)
-
-    terms, grads = loss_and_grads(cfg, state, batch, augment=True)
-    terms["grad_norm"] = grad_norm(grads)
-    sgd_update(cfg, state, grads)
-    return terms
 
 
 def main(argv=None):
@@ -232,8 +219,8 @@ def main(argv=None):
     if "full_body" in stages:
         progress("timing full_body")
         s = copy_state(state)
-        d_full = slope("full_body", lambda: full_body(cfg, s, batch),
-                       max(4, args.iters // 2))
+        d_full = slope("full_body", lambda: train_step(
+            cfg, s, batch, True)["loss_total"], max(4, args.iters // 2))
         progress(f"full_body {d_full:.2f} ms")
 
     r3 = lambda v: None if v is None else round(v, 3)  # noqa: E731
