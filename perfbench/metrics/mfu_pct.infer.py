@@ -1,0 +1,7 @@
+"""The forward's FLOPs of the window's images as a share of the bf16 peak (%)."""
+
+from perfbench.yardstick import readers
+
+
+def read(obs):
+    return readers.mfu_pct(obs)
