@@ -161,6 +161,18 @@ def session_ref_p50_ms(config_name="mpii_r18_384", device=None) -> float:
     return _SESSION_REF[key]
 
 
+def _timed_ms(dev_ms: float, config_name: str, batch: int) -> float:
+    """``dev_ms``, a ``device_latency_ms`` slope that a rate is computed
+    from, if it is positive. A slope of 0 (the longer runs no slower than
+    the shorter, as on a loaded host at few calls) gives no rate: raise
+    instead of dividing by it."""
+    if not dev_ms > 0:
+        raise RuntimeError(
+            f"{config_name} at batch {batch}: the timed body measured no "
+            f"time (device slope {dev_ms} ms); time it over more calls")
+    return dev_ms
+
+
 def bench_single_latency(calls: int = 50, iters: int = 32,
                          config_name="mpii_r18_384", device=None) -> Dict:
     """B=1 end-to-end latency over ``calls`` calls, each waited for, and
@@ -241,7 +253,8 @@ def bench_train_step(batch: int = 32, iters: int = 20, device_iters: int = 8,
         terms = step()
     terms["loss_total"].item()
     t = (time.perf_counter() - t0) / iters
-    dev_ms = device_latency_ms(step, iters=device_iters)
+    dev_ms = _timed_ms(device_latency_ms(step, iters=device_iters),
+                       config_name, batch)
     return {"config": "3_train_step",
             "metric": "train_images_per_sec",
             "value": round(batch / dev_ms * 1e3, 2),
@@ -321,7 +334,8 @@ def serving_batch(config_name: str, batch: int, iters: int,
     body = _pipeline_body(cfg, model)
     imgs = _images(cfg, batch, dev)
     t = timeit(body, imgs, iters=iters, warmup=warmup)
-    dev_ms = device_latency_ms(body, imgs, iters=device_iters)
+    dev_ms = _timed_ms(device_latency_ms(body, imgs, iters=device_iters),
+                       config_name, batch)
     ips = batch / dev_ms * 1e3
     return cfg, dev, {"value": round(ips, 2),
                       "device_batch_ms": round(dev_ms, 3),

@@ -32,19 +32,12 @@ from ppn_tpu_torch.configs import get_config
 from ppn_tpu_torch.data.synthetic import heldout_dataset
 from ppn_tpu_torch.inference import Predictor
 from ppn_tpu_torch.utils.params_io import load_inference_npz
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SNAPSHOT = os.path.join(ROOT, "artifacts", "mpii_hero_r5_ema_f16.npz")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # key -> (config, metric, unit) literals of ppn_tpu/bench/suite.py, the
@@ -100,7 +93,7 @@ TINY = {"1": dict(calls=3, iters=1),
         "3": dict(batch=2, iters=2, device_iters=2),
         "3c": dict(batch=2, k=2, cache_size=4, iters=1),
         "4": dict(batch=2, iters=2),
-        "4b": dict(batch=2, iters=2, device_iters=2),
+        "4b": dict(batch=2, iters=2, device_iters=8),
         "5": dict(frames=4, iters=1),
         "6": dict(n_frames=4),
         "7": dict(n=8, threads=2, max_batch=4),
@@ -173,6 +166,17 @@ def test_reference_literals_stand_where_the_table_says():
         lines = f.read().splitlines()
     for key, (config, _metric, _unit, line, _keys) in REFERENCE.items():
         assert f'"{config}"' in lines[line - 1] + lines[line], key
+
+
+def test_a_slope_of_no_time_raises_instead_of_dividing(monkeypatch):
+    """Config 4b's rate is batch / device_batch_ms: a slope of 0 (on a
+    loaded host at few calls) raises, naming the config, instead of
+    dividing by zero or reporting inf."""
+    monkeypatch.setenv("PPN_PEAK_TFLOPS", "1")
+    monkeypatch.setattr(suite, "device_latency_ms", lambda *a, **k: 0.0)
+    with pytest.raises(RuntimeError, match="tiny_test at batch 2: the timed "
+                       "body measured no time"):
+        _tiny_run("4b")
 
 
 def test_3c_agrees_with_the_jax_suite():

@@ -25,6 +25,9 @@ from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset, heldout_dataset
 from ppn_tpu_torch.eval import coco_eval, pckh, runner
 from ppn_tpu_torch.ops.parse import People
 from ppn_tpu_torch.utils import logging
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NAMES = sorted(jax_configs._REGISTRY)
 

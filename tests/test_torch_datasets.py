@@ -21,19 +21,12 @@ from ppn_tpu.data import mpii as jmpii
 from ppn_tpu_torch.configs import get_config
 from ppn_tpu_torch.data import coco, mpii
 from ppn_tpu_torch.data.imageio import load_resized
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # (H, W) of the written originals: downscaled to 384², and upscaled
 SIZES = {"down": (240, 320), "up": (120, 160)}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """PyTorch's thread pool only adds overhead here, and under the suite's
-    parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def assert_same_samples(got_ds, want_ds):

@@ -21,6 +21,9 @@ from ppn_tpu_torch.configs import get_config
 from ppn_tpu_torch.data.device_cache import DeviceCache, block_rows
 from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
 from ppn_tpu_torch.parallel import Mesh
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _same(got: dict, want: dict):

@@ -19,16 +19,9 @@ from ppn_tpu.ops import encode as jenc
 from ppn_tpu_torch.configs import get_config
 from ppn_tpu_torch.ops import decode as dec
 from ppn_tpu_torch.ops import encode as enc
+from torch_threads import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 GT = ("keypoints", "visible", "bboxes", "valid")

@@ -28,18 +28,11 @@ from ppn_tpu_torch.eval.coco_eval import OKSEvaluator, oks
 from ppn_tpu_torch.ops import encode as enc
 from ppn_tpu_torch.ops.parse import People
 from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 COCO_SNAPSHOT = "artifacts/coco_hero_r3_ema_f16.npz"
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---- oks and OKSEvaluator against the JAX package ---------------------------

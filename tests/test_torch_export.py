@@ -37,18 +37,11 @@ from ppn_tpu_torch.utils.export import export_pipeline, load_pipeline
 from ppn_tpu_torch.utils.params_io import state_dict_from_jax_leaves
 
 from test_torch_model import _jax_template, _numpy_leaves
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BATCH = 2
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 NMS_CASES = [(name, kind) for name in ("tiny_test", "mpii_r18_384")

@@ -43,19 +43,12 @@ from ppn_tpu_torch.utils.params_io import (_leaf_specs,
 
 from test_torch_model import (BF16_TOL, F32_TOL, _jax_template,
                               _numpy_leaves, _path_tuple)
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BLOCK_TOL = 2e-5
 STATS_TOL = 1e-5
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _family_configs(backbone, insize=(128, 128)):

@@ -15,6 +15,9 @@ from ppn_tpu.configs.ini_compat import load_ini as jax_load_ini
 from ppn_tpu.configs.overrides import apply_overrides as jax_apply_overrides
 from ppn_tpu_torch.configs import get_config, resolve_config
 from ppn_tpu_torch.ini_compat import load_ini
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REFERENCE_INI = textwrap.dedent("""
     [model]

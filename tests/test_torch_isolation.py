@@ -19,6 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ppn_tpu", "grain",
              "tensorflow", "tensorboard", "google.protobuf",

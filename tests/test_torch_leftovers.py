@@ -44,22 +44,15 @@ from ppn_tpu_torch.ops import boxes, decode, encode, nms
 from ppn_tpu_torch.testing import KINDS, feature_map_case
 from ppn_tpu_torch.utils import tb_events
 from ppn_tpu_torch.utils.logging import MetricLogger
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ["mpii_r18_384", "mpii_r50_384", "coco_r18_384",
            "coco_r18_384_crowded", "mpii_r18_224_fast", "tiny_test"]
 # chip_smoke.py phase 27 holds the card's model to this count
 MPII_R18_384_PARAMS = 14_254_006
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---- TensorBoard event files ------------------------------------------------

@@ -28,16 +28,9 @@ from ppn_tpu.train.loss import ppn_loss as jax_ppn_loss
 from ppn_tpu_torch.configs import get_config
 from ppn_tpu_torch.ops.encode import TargetGrids
 from ppn_tpu_torch.train.loss import limb_mask, ppn_loss
+from torch_threads import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 GT = ("keypoints", "visible", "bboxes", "valid")

@@ -32,6 +32,9 @@ from ppn_tpu_torch.nn.model import PoseProposalNet
 from ppn_tpu_torch.nn.resnet import same_pads
 from ppn_tpu_torch.utils.params_io import (jax_leaf_paths,
                                            state_dict_from_jax_leaves)
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2

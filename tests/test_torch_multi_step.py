@@ -42,16 +42,9 @@ from ppn_tpu_torch.train.trainer import Trainer
 from ppn_tpu_torch.utils.params_io import jax_leaves_from_state_dict
 
 from test_torch_train import _batches, _cfgs, _jax_leaves, _load_jax_state
+from torch_threads import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _cfg(**train):

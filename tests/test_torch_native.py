@@ -18,6 +18,9 @@ from PIL import Image
 
 from ppn_tpu.native import loader as ref
 from ppn_tpu_torch.native import loader as nl
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _jpeg_bytes(rng, h=240, w=320, quality=92):

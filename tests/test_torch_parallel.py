@@ -19,7 +19,6 @@ in other orders.
 
 import dataclasses
 import os
-import socket
 import types
 
 import jax
@@ -38,20 +37,17 @@ from ppn_tpu_torch.parallel import multihost
 from ppn_tpu_torch.train import steps as st
 from ppn_tpu_torch.train.trainer import Trainer
 from ppn_tpu_torch.utils.params_io import state_dict_from_jax_leaves
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CLUSTER_ENVS = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
                 "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE", "PMI_SIZE",
                 "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# the two ranks' deadline: about 4x their time under the suite's six
+# workers, so a rank that hangs in a collective fails the module instead of
+# holding its worker until the suite's clock runs out
+TWO_RANKS_DEADLINE_S = 300
 
 
 # ---- mesh helpers, one process ---------------------------------------------
@@ -291,15 +287,14 @@ def _sharded_cases(mesh, outdir: str) -> dict:
     return out
 
 
-def _two_rank_main(rank: int, world: int, ports: tuple, outdir: str) -> None:
+def _two_rank_main(rank: int, world: int, ports, outdir: str) -> None:
     """One rank of the module's two-process world: tests/torch_dist_worker.py
-    on the first port, then ``_sharded_cases`` in a second gloo world on
-    the second, writing ``sharded<r>.pt``."""
+    in a first gloo world, then ``_sharded_cases`` in a second, writing
+    ``sharded<r>.pt`` (rank 0 hands out each world's port on ``ports``)."""
     from ppn_tpu_torch.parallel import make_mesh
-    from ppn_tpu_torch.parallel.multihost import initialize
 
-    worker.main(rank, world, ports[0], outdir)
-    initialize(f"127.0.0.1:{ports[1]}", world, rank, backend="gloo")
+    worker.main(rank, world, ports, outdir)
+    _store = worker.join_world(rank, world, ports)  # rank 0's: the server
     out = {}
     try:
         out = _sharded_cases(make_mesh(device="cpu"), outdir)
@@ -319,12 +314,9 @@ def two_ranks(tmp_path_factory):
         {"params": jstate.params, "rest": jstate.rest})]
     torch.save(state_dict_from_jax_leaves(worker.config("bfloat16"), leaves),
                os.path.join(outdir, "jax_state.pt"))
-    with socket.socket() as a, socket.socket() as b:
-        a.bind(("127.0.0.1", 0))
-        b.bind(("127.0.0.1", 0))
-        ports = (a.getsockname()[1], b.getsockname()[1])
-    torch.multiprocessing.spawn(_two_rank_main, args=(2, ports, str(outdir)),
-                                nprocs=2, join=True)
+    ports = torch.multiprocessing.get_context("spawn").Queue()
+    worker.spawn(_two_rank_main, (2, ports, str(outdir)), 2,
+                 TWO_RANKS_DEADLINE_S)
     ranks = [dict(torch.load(os.path.join(outdir, f"rank{r}.pt")),
                   sharded=torch.load(os.path.join(outdir, f"sharded{r}.pt")))
              for r in (0, 1)]

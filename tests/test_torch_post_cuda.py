@@ -17,8 +17,10 @@ import torch
 from ppn_tpu_torch.configs import get_config
 from ppn_tpu_torch.testing import (KINDS, feature_map_case, max_ulp,
                                    nan_window_case)
+from torch_threads import one_torch_thread  # noqa: F401
 
-pytestmark = pytest.mark.cuda
+pytestmark = [pytest.mark.cuda,
+              pytest.mark.usefixtures("one_torch_thread")]
 
 ULPS = 4
 

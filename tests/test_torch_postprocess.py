@@ -29,6 +29,9 @@ from ppn_tpu_torch.testing import (EDGE_KINDS, KINDS, feature_map_case,
                                    max_ulp, nan_window_case)
 
 from test_postprocess import oracle_nms, oracle_parse
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ULPS = 4
 DECISIONS = ("kp_cell", "kp_valid", "valid", "num_kp")

@@ -25,16 +25,9 @@ from ppn_tpu_torch.train import steps as st
 from ppn_tpu_torch.train.checkpoint import Checkpointer, load_state
 from ppn_tpu_torch.utils.draw import draw_people
 from ppn_tpu_torch.utils.params_io import save_inference_npz
+from torch_threads import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

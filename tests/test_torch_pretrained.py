@@ -24,18 +24,11 @@ from ppn_tpu_torch.utils.torch_import import (load_torch_resnet,
 
 from test_torch_import import (_fake_torchvision_resnet18_sd,
                                _fake_torchvision_resnet50_sd)
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BF16_TOL = 3e-2
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _torch_sd(sd):

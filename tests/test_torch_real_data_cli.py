@@ -9,24 +9,17 @@ import os
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
+
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SNAPSHOT = os.path.join(ROOT, "artifacts", "mpii_hero_r5_ema_f16.npz")
 # the JAX package's PCKh of the snapshot on the PNG set (make_forward
 # through eval/runner.evaluate_pckh, det 0.02, nms 0.45) and its joints
 PINNED_FILE_PCKH, PINNED_JOINTS = 0.9761904761904762, 378
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """PyTorch's thread pool only adds overhead here, and under the suite's
-    parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

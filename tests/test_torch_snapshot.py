@@ -27,6 +27,9 @@ from ppn_tpu_torch.inference import Predictor
 from ppn_tpu_torch.ops.parse import People
 from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
 from ppn_tpu_torch.utils.params_io import load_inference_npz
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ARTIFACTS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "artifacts")

@@ -51,16 +51,9 @@ from tools import fwd_split as jax_fwd_split
 from tools import torch_bwd_split, torch_fwd_split, torch_train_split
 
 from test_torch_model import F32_TOL, _jax_template, _numpy_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _configs(backbone="resnet18"):

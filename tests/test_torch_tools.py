@@ -44,22 +44,15 @@ from tools import (torch_bwd_split, torch_crowding_study,
                    torch_export_snapshot, torch_fwd_split,
                    torch_oracle_ceiling, torch_split_sweep,
                    torch_threshold_sweep, torch_train_split)
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MPII = os.path.join(ROOT, "artifacts", "mpii_hero_r5_ema_f16.npz")
 CROWD = os.path.join(ROOT, "artifacts", "crowd_hero_r5_ema_f16.npz")
 MODEL_TOL = 3e-3
 BF16_TOL = 3e-2
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _printed(capsys, main, argv):
@@ -259,14 +252,9 @@ def tiny_ckpt(tmp_path_factory):
     from ppn_tpu_torch.apps import train
 
     ckpt = str(tmp_path_factory.mktemp("tiny") / "ckpt")
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        train.main(["--device", "cpu", "--config", "tiny_test", "--overfit",
-                    "2", "--steps", "2", "--ema-decay", "0.9",
-                    "--ckpt-dir", ckpt])
-    finally:
-        torch.set_num_threads(n)
+    train.main(["--device", "cpu", "--config", "tiny_test", "--overfit",
+                "2", "--steps", "2", "--ema-decay", "0.9",
+                "--ckpt-dir", ckpt])
     return ckpt
 
 

@@ -49,18 +49,11 @@ from ppn_tpu_torch.utils.params_io import (jax_leaves_from_state_dict,
                                            load_npz_into_train_state,
                                            save_inference_npz,
                                            state_dict_from_jax_leaves)
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BATCH_KEYS = ("image", "keypoints", "visible", "bboxes", "valid")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(name="tiny_test", **train):

@@ -35,21 +35,14 @@ from ppn_tpu_torch.train import steps as st
 from ppn_tpu_torch.utils.params_io import state_dict_from_jax_leaves
 
 from test_torch_model import _jax_template, _numpy_leaves
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CONFIGS = ["tiny_test", "mpii_r18_384", "coco_r18_384_crowded",
            "mpii_r18_224_fast"]
 DECISIONS = ("kp_cell", "kp_valid", "valid", "num_kp")
 F32_TOL = 2e-5
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _map(cfg, seed, batch=2):

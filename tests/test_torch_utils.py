@@ -14,16 +14,9 @@ import torch
 from ppn_tpu_torch.configs import get_config
 from ppn_tpu_torch.nn.model import PoseProposalNet
 from ppn_tpu_torch.utils import debug, profiling
+from torch_threads import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture

@@ -16,7 +16,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from flax import nnx
 
 from ppn_tpu.apps import video as jvideo
@@ -30,18 +29,11 @@ from ppn_tpu_torch.train import steps as st
 from ppn_tpu_torch.utils.params_io import state_dict_from_jax_leaves
 
 from test_torch_model import _jax_template, _numpy_leaves
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DECISIONS = ("kp_cell", "kp_valid", "valid", "num_kp")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -29,16 +29,9 @@ from ppn_tpu.ops.pallas_warp import affine_warp_batch_pallas
 from ppn_tpu_torch.ops import cuda_warp
 from ppn_tpu_torch.ops.image import (affine_warp_separable_plain,
                                      apply_affine_points, make_affine)
+from torch_threads import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tensors here are small: PyTorch's thread pool only adds overhead, and
-    under the suite's parallel workers it oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 # (angle, scale, tx, flip), tests/test_pallas_warp.py CASES

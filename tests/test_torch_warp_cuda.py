@@ -18,8 +18,10 @@ from ppn_tpu_torch.configs import get_config
 from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
 from ppn_tpu_torch.ops import cuda_warp
 from ppn_tpu_torch.ops.image import affine_warp_separable_plain, make_affine
+from torch_threads import one_torch_thread  # noqa: F401
 
-pytestmark = pytest.mark.cuda
+pytestmark = [pytest.mark.cuda,
+              pytest.mark.usefixtures("one_torch_thread")]
 
 # (angle, scale, tx, flip), tests/test_pallas_warp.py CASES
 CASES = [(0.0, 1.0, 0.0, False), (0.3, 1.1, 12.0, False),

@@ -7,19 +7,77 @@ and state after one f32 ``Trainer`` step with augmentation (and what a
 resumed ``Trainer`` and the primary-only checkpoint left), the loss terms
 of one bf16 step from the parameters in ``jax_state.pt``, the rows its
 ``DeviceCache`` gathered, and the messages of the refusals it met. The
-test starts both ranks with
-``torch.multiprocessing.spawn(main, args=(2, port, outdir), nprocs=2)``.
+test starts both ranks with ``spawn(main, (2, ports, outdir), 2,
+deadline_s)``, ``ports`` a queue of the spawn context through which rank 0
+hands out the port of each world it opens (``join_world``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
 GLOBAL_BATCH = 8
+# how long a rank waits for rank 0 to hand it a world's port
+PORT_WAIT_S = 120
+
+
+def spawn(fn, args: tuple, nprocs: int, deadline_s: float) -> None:
+    """``torch.multiprocessing.spawn(fn, args=args, nprocs=nprocs)`` joined
+    against a deadline. A rank that raises fails the call at once (spawn
+    terminates the others); ranks still alive ``deadline_s`` seconds after
+    the start are killed, and the call raises ``TimeoutError`` naming
+    them."""
+    ctx = torch.multiprocessing.spawn(fn, args=args, nprocs=nprocs,
+                                      join=False)
+    end = time.monotonic() + deadline_s
+    while not ctx.join(timeout=max(0.0, end - time.monotonic())):
+        if time.monotonic() < end:
+            continue
+        alive = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        for p in ctx.processes:
+            p.join(30)
+        raise TimeoutError(
+            ", ".join(f"rank {r}" for r in alive)
+            + f" still alive after the {deadline_s:g} s deadline: killed")
+
+
+def join_world(rank: int, world: int, ports):
+    """Join a gloo world on a port that no other process can take between
+    its choice and its use: rank 0 binds port 0 in a ``TCPStore`` server,
+    which ``multihost.initialize``'s rendezvous then shares (a store on the
+    same port in the same process is one server: ``multi_tenant``), and
+    puts the port on ``ports`` once for every other rank. Returns rank 0's
+    store, which must outlive the world (None on the other ranks)."""
+    from ppn_tpu_torch.parallel.multihost import initialize
+
+    store = None
+    if rank == 0:
+        store = torch.distributed.TCPStore("127.0.0.1", 0, world, True,
+                                           wait_for_workers=False,
+                                           multi_tenant=True)
+        port = store.port
+        for _ in range(world - 1):
+            ports.put(port)
+    else:
+        port = ports.get(timeout=PORT_WAIT_S)
+    initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    return store
+
+
+def sleeping_rank(rank: int, pid_dir: str, seconds: float) -> None:
+    """A rank that records its pid in ``pid_dir`` and sleeps ``seconds``
+    times its rank: rank 0 ends at once (the deadline test's rank)."""
+    with open(os.path.join(pid_dir, f"pid{rank}"), "w") as f:
+        f.write(str(os.getpid()))
+    time.sleep(seconds * rank)
 
 
 def config(dtype: str = "float32", **train):
@@ -60,16 +118,15 @@ def global_batch() -> dict:
                               "valid")}
 
 
-def main(rank: int, world: int, port: int, outdir: str) -> None:
+def main(rank: int, world: int, ports, outdir: str) -> None:
     torch.set_num_threads(1)
     from ppn_tpu_torch.data.device_cache import DeviceCache
     from ppn_tpu_torch.parallel import make_mesh, shard_batch
-    from ppn_tpu_torch.parallel.multihost import (global_batch_from_local,
-                                                  initialize)
+    from ppn_tpu_torch.parallel.multihost import global_batch_from_local
     from ppn_tpu_torch.train import steps as st
     from ppn_tpu_torch.train.trainer import Trainer
 
-    initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    _store = join_world(rank, world, ports)  # rank 0's: the world's server
     out = {}
     try:
         mesh = make_mesh(device="cpu")
