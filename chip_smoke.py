@@ -6,10 +6,11 @@
 Phases, each raising on failure:
   1. device  — require CUDA; print the card's name and power limit; turn
                TF32 off for matmuls and cuDNN convs;
-  2. build   — compile both kernels from the checkout's sources with nvcc
+  2. build   — compile the kernels from the checkout's sources with nvcc
                for sm_90a, one nvcc per source, in parallel:
-               ``ppn_post_kernel`` (ppn_tpu_torch/csrc/post.cu) and
-               ``ppn_warp_kernel`` (ppn_tpu_torch/csrc/warp.cu); beside
+               ``ppn_post_kernel`` (ppn_tpu_torch/csrc/post.cu),
+               ``ppn_warp_kernel`` (ppn_tpu_torch/csrc/warp.cu) and the
+               BatchNorm kernels ``ppn_bn_*`` (csrc/batch_norm.cu); beside
                them, g++ builds the native JPEG pool
                (ppn_tpu_torch/native/loader.cc) against the libjpeg-turbo
                in the imported Pillow's ``pillow.libs`` (a missing one
@@ -33,7 +34,13 @@ Phases, each raising on failure:
                ``sample_params`` and at B=6 with the unit tests' six
                matrices, bf16 and f32; tiny_test 64² likewise; the edge
                cases 64×97 (a width no tile divides) at C=1, 3, 4 and 384²
-               at B=1;
+               at B=1; then the training-mode BatchNorm kernels ``ppn_bn_*``
+               against their plain version on ResNet-18's maps at 384²
+               (B=8, bf16 and f32, each with the activation it folds in):
+               the sums within f32 rounding, and given the kernels' sums
+               ``y``, ``dx`` and the parameter gradients within one ulp;
+               their forward and backward times at the stem's B=128 map (CUDA
+               graphs) beside the bytes bound and the plain version's time;
   5. inference path, part 1 — ``Predictor.from_npz`` on the committed MPII
                snapshot, PCKh over the 16-image synthetic protocol at B=8
                (det 0.02, nms 0.45): 0.9921 ± 3e-3 over 378 joints;
@@ -171,7 +178,8 @@ Phases, each raising on failure:
                from the snapshot: one ``make_multi_train_step`` call of K=4
                on a cached index block against 4 ``train_step`` calls on
                the same block, the whole state and the mean terms bitwise,
-               exactly 4 warp launches in the call; ms per step of K-step
+               exactly 4 warp launches in the call and 6 ``ppn_bn_*``
+               launches per BatchNorm layer and step; ms per step of K-step
                calls and of per-step calls, in turns;
 25. sharded cache — two spawned ranks share cuda:0 in a gloo world: a
                ``DeviceCache(mesh=)`` of the 256 cached images (128 rows
@@ -322,6 +330,15 @@ import torch
 
 # H100 SXM data-sheet HBM rate, bytes/s
 HBM_BYTES_PER_S = 3.35e12
+# phase 4: BatchNorm maps at 384² (batch, channels, side) with the
+# activation each folds in: ResNet-18's (the stem, the stages, the head) at
+# B=8, then the benchmark's grids: ResNet-18's stem at B=128, ResNet-50's
+# stem, its first stage's wide map and its last stage's map at B=64
+BN_CASES = ((8, 64, 192, "relu"), (8, 64, 96, "relu"), (8, 64, 96, None),
+            (8, 128, 48, "relu"), (8, 256, 24, None), (8, 512, 12, "relu"),
+            (8, 512, 12, "leaky_relu"), (128, 64, 192, "relu"),
+            (64, 64, 192, "relu"), (64, 256, 96, None), (64, 2048, 12, None))
+BN_EPS, BN_MOMENTUM = 1e-5, 0.9
 PINNED_PCKH, PINNED_JOINTS = 0.9921, 378
 # flip-TTA on the same protocol: the JAX package's value on its CPU
 # (train/steps.make_forward(flip_tta=True) through eval/runner.evaluate_pckh)
@@ -1391,11 +1408,152 @@ def same_state(a, b) -> bool:
             and torch.equal(a.generator.get_state(), b.generator.get_state()))
 
 
+def bn_case(B: int, C: int, side: int, dtype, dev, seed: int = 0):
+    """A channels_last (B, C, side, side) map with channels of their own
+    mean and spread, scale and bias, and an upstream gradient."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    shift, spread = randn(C), randn(C).abs() + 0.5
+    x = (randn(B, side, side, C) * spread + shift).to(dtype).permute(0, 3, 1, 2)
+    dy = randn(B, side, side, C).to(dtype).permute(0, 3, 1, 2)
+    return x, randn(C).abs() + 0.5, 0.1 * randn(C), dy
+
+
+def ulps_apart(got: torch.Tensor, want: torch.Tensor) -> tuple[int, float]:
+    """(the most ulps of ``want``'s dtype between the two, the share of
+    values that differ)."""
+    d = (got.float() - want.float()).abs()
+    tiny = torch.finfo(want.dtype).tiny
+    _, e = torch.frexp(want.float().abs().clamp_min(tiny))
+    bits = 8 if want.dtype == torch.bfloat16 else 24
+    ulp = torch.ldexp(torch.ones_like(d), e - bits)
+    return int((d / ulp).ceil().max()), float((d > 0).float().mean())
+
+
+def bn_phase(dev, card: str) -> dict:
+    """Phase 4, BatchNorm: ``ppn_bn_*`` against the plain version on
+    ``BN_CASES``, then timed at the stem's B=128 map, beside PyTorch's
+    SyncBatchNorm primitives and a ReLU on the same map."""
+    from ppn_tpu_torch.ops import cuda_bn
+
+    worst = {"sums": 0.0, "grad_sums": 0.0, "y": (0, 0.0), "dx": (0, 0.0),
+             "params": (0, 0.0)}
+    for B, C, side, act in BN_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            x, w, b, dy = bn_case(B, C, side, dt, dev)
+            rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
+            y, sums = cuda_bn.forward_cuda(x, w, b, rm, rv, BN_EPS,
+                                           BN_MOMENTUM, act)
+            dx, dw, db, gsums = cuda_bn.backward_cuda(dy, x, sums, w, b,
+                                                      BN_EPS, act)
+            xf = x.float()
+            rel = ((sums - cuda_bn.stats_plain(xf)).abs()
+                   / cuda_bn.stats_plain(xf.abs()))
+            mean = (sums[:C] / sums[2 * C])[:, None, None]
+            dyf = dy.float().abs()
+            scale = torch.cat([dyf.sum((0, 2, 3)),
+                               (dyf * (xf - mean).abs()).sum((0, 2, 3))])
+            grel = (gsums - cuda_bn.grad_sums_plain(
+                dy, x, sums, w, b, BN_EPS, act)).abs() / scale
+            want = cuda_bn.apply_plain(
+                xf, sums, w, b, torch.zeros(C, device=dev),
+                torch.ones(C, device=dev), BN_EPS, BN_MOMENTUM, dt, act)
+            pdx, pdw, pdb = cuda_bn.backward_plain(dy, x, sums, gsums, w, b,
+                                                   BN_EPS, act)
+            found = {"sums": float(rel.max()), "grad_sums": float(grel.max()),
+                     "y": ulps_apart(y, want), "dx": ulps_apart(dx, pdx),
+                     "params": ulps_apart(torch.cat([dw, db]).to(dt),
+                                          torch.cat([pdw, pdb]).to(dt))}
+            log(f"[bn] B={B} C={C} {side}x{side} {str(dt)[6:]} act={act}: "
+                f"sums rel {found['sums']:.2e}, gradient sums rel "
+                f"{found['grad_sums']:.2e}; given the kernels' sums, (ulps, "
+                f"share differing): y {found['y']}, dx {found['dx']}, "
+                f"dweight+dbias {found['params']}")
+            for k, v in found.items():
+                worst[k] = max(worst[k], v)
+            if (found["sums"] > 1e-5 or found["grad_sums"] > 1e-5
+                    or max(found["y"][0], found["dx"][0],
+                           found["params"][0]) > 1):
+                raise AssertionError(f"ppn_bn_* differs from its plain "
+                                     f"version: B={B} C={C} {side} {dt} "
+                                     f"{act}")
+            del x, dy, y, dx, xf, want, pdx
+        torch.cuda.empty_cache()
+    # times at the stem's map, B=128 bf16 with its ReLU
+    x, w, b, dy = bn_case(128, 64, 192, torch.bfloat16, dev)
+    rm, rv = torch.zeros(64, device=dev), torch.ones(64, device=dev)
+    _, sums = cuda_bn.forward_cuda(x, w, b, rm, rv, BN_EPS, BN_MOMENTUM,
+                                   "relu")
+
+    def fwd():
+        cuda_bn.forward_cuda(x, w, b, rm, rv, BN_EPS, BN_MOMENTUM, "relu")
+
+    def bwd():
+        cuda_bn.backward_cuda(dy, x, sums, w, b, BN_EPS, "relu")
+
+    wg, bg = w.clone().requires_grad_(), b.clone().requires_grad_()
+
+    def layer(fn):
+        def run():
+            xr = x.detach().requires_grad_()
+            y = fn(xr, wg, bg, rm, rv, BN_EPS, BN_MOMENTUM, torch.bfloat16,
+                   "relu")
+            torch.autograd.grad(y, (xr, wg, bg), dy)
+        return run
+
+    # PyTorch's SyncBatchNorm primitives (Welford statistics, channels_last
+    # kernels) as its SyncBatchNorm calls them on one rank, then the ReLU
+    # and its backward as separate passes
+    count = torch.full((1,), float(x.numel() // 64), device=dev)
+    lib = {}
+
+    def lib_fwd():
+        m, s = torch.batch_norm_stats(x, BN_EPS)
+        m, s = torch.batch_norm_gather_stats_with_counts(
+            x, m[None], s[None], rm, rv, 1 - BN_MOMENTUM, BN_EPS, count)
+        lib.update(mean=m, invstd=s,
+                   y=torch.relu(torch.batch_norm_elemt(x, w, b, m, s,
+                                                       BN_EPS)))
+
+    def lib_bwd():
+        g = torch.ops.aten.threshold_backward(dy, lib["y"], 0)
+        sdy, sdyx, _, _ = torch.batch_norm_backward_reduce(
+            g, x, lib["mean"], lib["invstd"], w, True, True, True)
+        torch.batch_norm_backward_elemt(g, x, lib["mean"], lib["invstd"], w,
+                                        sdy, sdyx, count.int())
+
+    f_ms, b_ms = graph_ms(fwd, 20), graph_ms(bwd, 20)
+    lib_fwd()
+    lib_f_ms, lib_b_ms = graph_ms(lib_fwd, 20), graph_ms(lib_bwd, 20)
+    layer_ms = time_ms(layer(cuda_bn.batch_norm_train), 20)
+    plain_ms = time_ms(layer(cuda_bn.batch_norm_train_plain), 3)
+    nbytes = x.numel() * x.element_size()
+    f_bound, b_bound = (1e3 * k * nbytes / HBM_BYTES_PER_S for k in (3, 5))
+    out = {"worst": worst, "ms_forward": f_ms, "ms_backward": b_ms,
+           "bound_ms_forward": f_bound, "bound_ms_backward": b_bound,
+           "ms_layer_eager": layer_ms, "plain_ms": plain_ms,
+           "library_ms": lib_f_ms + lib_b_ms,
+           "library_ms_forward": lib_f_ms, "library_ms_backward": lib_b_ms}
+    log(f"[time] BatchNorm at the stem's map, B=128 64x192x192 bf16 + ReLU: "
+        f"ppn_bn_* forward {f_ms:.4f} ms (bound {f_bound:.4f}: x read twice, "
+        f"y written), backward {b_ms:.4f} ms (bound {b_bound:.4f}: dy and x "
+        f"read twice, dx written), CUDA graphs of 20 calls; PyTorch's "
+        f"SyncBatchNorm primitives with a separate ReLU forward "
+        f"{lib_f_ms:.4f} ms, backward {lib_b_ms:.4f} ms, the same way; the "
+        f"layer's forward+backward through autograd back to back "
+        f"{layer_ms:.4f} ms; plain {plain_ms:.3f} ms | {card}")
+    return out
+
+
 def k_step_phase(cfg, cache, dev, card: str) -> dict:
     """Phase 24: one K-step call against K ``train_step`` calls on the same
     block, bitwise, its warp launches, then ms per step of both, in
     turns."""
-    from ppn_tpu_torch.ops import cuda_warp
+    from ppn_tpu_torch.nn.resnet import BatchNorm
+    from ppn_tpu_torch.ops import cuda_bn, cuda_warp
     from ppn_tpu_torch.train import steps as st
     from ppn_tpu_torch.utils.params_io import load_npz_into_train_state
 
@@ -1415,10 +1573,11 @@ def k_step_phase(cfg, cache, dev, card: str) -> dict:
                                      steps_per_call=K_STEPS)
     per = [st.train_step(kcfg, b, cache.batch(i), augment=True) for i in idx]
     torch.cuda.synchronize()
-    cuda_warp.LAUNCHES = 0
+    cuda_warp.LAUNCHES = cuda_bn.LAUNCHES = 0
     got = multi(a, cache, idx)
     torch.cuda.synchronize()
-    launches = cuda_warp.LAUNCHES
+    launches, bn_launches = cuda_warp.LAUNCHES, cuda_bn.LAUNCHES
+    bn_layers = sum(isinstance(m, BatchNorm) for m in a.model.modules())
     mean = {k: torch.stack([t[k] for t in per]).mean(0) for k in per[0]}
     terms_equal = got.keys() == mean.keys() and all(
         torch.equal(v, mean[k]) for k, v in got.items())
@@ -1438,6 +1597,7 @@ def k_step_phase(cfg, cache, dev, card: str) -> dict:
             ms.append(1e3 * (time.perf_counter() - t0) / K_STEPS)
     out = {"state_equal": state_equal, "terms_equal": terms_equal,
            "warp_launches_per_call": launches,
+           "bn_launches_per_call": bn_launches, "bn_layers": bn_layers,
            "loss_total": float(got["loss_total"]),
            "k_step_ms_per_step": statistics.median(k_ms),
            "per_step_ms_per_step": statistics.median(s_ms),
@@ -1447,11 +1607,13 @@ def k_step_phase(cfg, cache, dev, card: str) -> dict:
         f"train_step calls on the same block, state bitwise {state_equal}, "
         f"mean terms bitwise {terms_equal} (loss_total "
         f"{out['loss_total']:.6f}); ppn_warp_kernel launches in the call "
-        f"{launches}; ms per step (host clock around synchronized blocks of "
+        f"{launches}, ppn_bn_* launches {bn_launches} ({bn_layers} BatchNorm "
+        f"layers); ms per step (host clock around synchronized blocks of "
         f"{K_STEPS} steps, median of 4 in turns): K-step "
         f"{out['k_step_ms_per_step']:.3f}, per-step "
         f"{out['per_step_ms_per_step']:.3f} | {card}")
-    if not state_equal or not terms_equal or launches != K_STEPS:
+    if (not state_equal or not terms_equal or launches != K_STEPS
+            or bn_launches != 6 * bn_layers * K_STEPS):
         raise AssertionError(f"K-step loop: {out}")
     return out
 
@@ -2436,6 +2598,7 @@ def bottleneck_card_vs_cpu(cin: int, cout: int, stride: int, side: int,
     import copy
 
     from ppn_tpu_torch.nn import resnet
+    from ppn_tpu_torch.ops import cuda_bn
 
     torch.manual_seed(15)
     init = resnet.Bottleneck(cin, cout, stride, dtype=torch.float32).train()
@@ -2477,13 +2640,25 @@ def bottleneck_card_vs_cpu(cin: int, cout: int, stride: int, side: int,
                 {n: g.cpu() for n, g in zip(("input", *names), grads)},
                 {n: b.cpu() for n, b in block.named_buffers()})
 
-    functional, resnet.F = resnet.F, Functional()
+    # on the card the ReLUs after conv1's and conv2's BatchNorm run inside
+    # the ppn_bn_* kernels: their decisions are read off those layers'
+    # outputs (positive where the pre-activation was), in call order with
+    # the residual ReLU's; on the CPU all three go through ``F.relu``
+    card_block = copy.deepcopy(init).to(dev)
+    hooks = [m.register_forward_hook(
+        lambda layer, args, y: masks.append(y > 0))
+        for m in card_block.modules()
+        if isinstance(m, resnet.BatchNorm) and m.act == "relu"]
+    functional = resnet.F, cuda_bn.F
+    resnet.F = cuda_bn.F = Functional()
     try:
-        got = run(copy.deepcopy(init).to(dev), dev)
+        got = run(card_block, dev)
+        for h in hooks:
+            h.remove()
         replay["on"] = True
         want = run(copy.deepcopy(init), "cpu")
     finally:
-        resnet.F = functional
+        resnet.F, cuda_bn.F = functional
     out = {k: max_rel_state(g, w) for k, g, w in zip(
         ("output", "gradients", "statistics"), got, want)}
     out["relu_ties"] = replay["ties"]
@@ -2872,7 +3047,7 @@ def main() -> int:
                                               heldout_dataset)
     from ppn_tpu_torch.eval.runner import evaluate_oks, evaluate_pckh
     from ppn_tpu_torch.inference import Predictor, fetch_async, wait_host
-    from ppn_tpu_torch.ops import cuda_build, cuda_post, cuda_warp
+    from ppn_tpu_torch.ops import cuda_bn, cuda_build, cuda_post, cuda_warp
     from ppn_tpu_torch.ops.image import (affine_warp_separable_plain,
                                          resize_bilinear)
     from ppn_tpu_torch.ops.postprocess import postprocess_batch_plain
@@ -2899,10 +3074,10 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:   # g++ beside the nvcc processes
         native_lib = pool.submit(native_loader.load)
-        reports = cuda_build.build([cuda_post.SOURCE, cuda_warp.SOURCE],
-                                   force=True)
+        reports = cuda_build.build([cuda_post.SOURCE, cuda_warp.SOURCE,
+                                    cuda_bn.SOURCE], force=True)
         native_lib.result()
-    log(f"[build] ppn_post_kernel and ppn_warp_kernel built in "
+    log(f"[build] ppn_post_kernel, ppn_warp_kernel and ppn_bn_* built in "
         f"{time.perf_counter() - t0:.2f} s (parallel nvcc), the native JPEG "
         f"pool beside them ({native_loader.LIB.name} linking "
         f"{native_loader.libjpeg()})")
@@ -2995,6 +3170,7 @@ def main() -> int:
             if n_diff:
                 raise AssertionError(f"ppn_warp_kernel differs from its "
                                      f"plain version: {label} {dt}")
+    bn = bn_phase(dev, card)
 
     # ---- 5. inference path: snapshot PCKh through the kernel ----------------
     cfg = get_config("mpii_r18_384")
@@ -3699,6 +3875,20 @@ def main() -> int:
         "plain_ms_224_b32": family["warp"]["plain_ms"],
         "bound_ms_224_b32": family["warp"]["bound_ms"],
         "launches_split_tools": split["launches"]["train_split"][1],
+    }, {
+        "name": "ppn_bn_*", "route": "cuda",
+        "source": "ppn_tpu_torch/csrc/batch_norm.cu",
+        "replaces": None,
+        "launches_per_k_step_call": kstep["bn_launches_per_call"],
+        "batch_norm_layers": kstep["bn_layers"],
+        "ms": bn["ms_forward"] + bn["ms_backward"],
+        "ms_forward": bn["ms_forward"], "ms_backward": bn["ms_backward"],
+        "bound_ms": bn["bound_ms_forward"] + bn["bound_ms_backward"],
+        "bound_by": "bytes", "library_ms": bn["library_ms"],
+        "library": "PyTorch's SyncBatchNorm primitives and a separate ReLU",
+        "plain_ms": bn["plain_ms"], "ms_layer_eager": bn["ms_layer_eager"],
+        "ms_by": "CUDA graph replay of 20 forward and 20 backward calls",
+        "shape": "B=128 64x192x192 bf16, ReLU", "worst": bn["worst"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

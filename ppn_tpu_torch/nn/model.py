@@ -13,7 +13,6 @@ The Hopper post-process kernel reads this NHWC map directly.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ppn_tpu_torch.configs import PPNConfig
@@ -28,13 +27,13 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class PPNHead(nn.Module):
     def __init__(self, cfg: PPNConfig, cin: int, dtype=torch.bfloat16):
         super().__init__()
-        self.block = ConvBN(cin, 512, 3, 1, dtype)
+        self.block = ConvBN(cin, 512, 3, 1, dtype, act="leaky_relu")
         self.out = Conv(512, cfg.num_channels, 1, bias=True, dtype=dtype)
         # start resp/conf σ-scores low (YOLO-style init), as the JAX head
         nn.init.constant_(self.out.bias, -1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(F.leaky_relu(self.block(x), negative_slope=0.1))
+        return self.out(self.block(x))
 
 
 class PoseProposalNet(nn.Module):

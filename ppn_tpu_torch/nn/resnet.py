@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ppn_tpu_torch.parallel.mesh import all_reduce_sum
+from ppn_tpu_torch.ops import cuda_bn
 
 # The process group whose ranks' batches training-mode BatchNorm takes its
 # statistics over (None: this process's batch); set by global_batch_stats.
@@ -93,20 +93,24 @@ class Conv(nn.Module):
 
 class BatchNorm(nn.Module):
     """BatchNorm over channel dim 1, as ``nnx.BatchNorm(momentum=0.9,
-    epsilon=1e-5)`` computes it in Flax 0.12; ``train()``/``eval()`` switch
-    between batch and running statistics.
+    epsilon=1e-5)`` computes it in Flax 0.12, then the activation ``act``
+    that follows the layer in the model (None, ``"relu"`` or
+    ``"leaky_relu"``, slope 0.1); ``train()``/``eval()`` switch between
+    batch and running statistics.
 
     Eval: every operand is cast to ``dtype`` first and each step rounds
     there, in Flax's order: ``(x - mean) · (rsqrt(var + eps) · scale) +
-    bias``.
+    bias``; the activation follows eagerly.
 
-    Training: the statistics are taken over N, H, W in f32 from the input
-    rounded to ``dtype``, with the fast variance ``E[x²] − E[x]²`` clipped
-    at 0. The running update is ``0.9·running + 0.1·batch`` with that
-    biased variance (``torch.nn.BatchNorm2d`` would use the unbiased one).
-    Flax then normalizes in f32, the ``dtype`` input, scale and bias
-    promoted against the f32 statistics, and rounds once to ``dtype``.
-    Gradients flow through the batch statistics.
+    Training (``ops/cuda_bn.py``: the ``ppn_bn_*`` kernels for a CUDA map,
+    the plain version for a CPU one): the statistics are taken over N, H, W
+    in f32 from the input rounded to ``dtype``, with the fast variance
+    ``E[x²] − E[x]²`` clipped at 0. The running update is ``0.9·running +
+    0.1·batch`` with that biased variance (``torch.nn.BatchNorm2d`` would
+    use the unbiased one). Flax then normalizes in f32, the ``dtype``
+    input, scale and bias promoted against the f32 statistics, and rounds
+    once to ``dtype``; the activation applies to that value. Gradients flow
+    through the batch statistics.
 
     The statistics come from the per-channel sums Σx, Σx² and the count,
     which inside ``global_batch_stats(group)`` are summed over the group's
@@ -116,9 +120,12 @@ class BatchNorm(nn.Module):
 
     momentum = 0.9
 
-    def __init__(self, c: int, eps: float = 1e-5, dtype=torch.bfloat16):
+    def __init__(self, c: int, eps: float = 1e-5, dtype=torch.bfloat16,
+                 act=None):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        if act not in cuda_bn.ACTS:
+            raise ValueError(f"no activation {act!r}")
+        self.eps, self.dtype, self.act = eps, dtype, act
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -127,39 +134,26 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if self.training:
-            xf = x.to(dt).float()
-            c = xf.shape[1]
-            sums = torch.cat([xf.sum(dim=(0, 2, 3)),
-                              torch.square(xf).sum(dim=(0, 2, 3)),
-                              xf.new_full((1,), xf.numel() // c)])
-            group = _STATS_GROUP.get()
-            if group is not None:
-                sums = all_reduce_sum(sums, group)
-            s1, s2, count = sums.split([c, c, 1])
-            mean = s1 / count
-            var = torch.clamp_min(s2 / count - torch.square(mean), 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(
-                    m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-            mul = torch.rsqrt(var + self.eps) * self.weight.to(dt).float()
-            y = (xf - mean[:, None, None]) * mul[:, None, None]
-            return (y + self.bias.to(dt).float()[:, None, None]).to(dt)
+            return cuda_bn.batch_norm_train(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, self.eps, self.momentum, dt, self.act,
+                _STATS_GROUP.get())
         mean = self.running_mean.to(dt)[:, None, None]
         mul = torch.rsqrt(self.running_var.to(dt) + self.eps)
         mul = (mul * self.weight.to(dt))[:, None, None]
-        return (x.to(dt) - mean) * mul + self.bias.to(dt)[:, None, None]
+        y = (x.to(dt) - mean) * mul + self.bias.to(dt)[:, None, None]
+        return cuda_bn.activate(y, self.act)
 
 
 class ConvBN(nn.Module):
-    """Conv → BatchNorm (no activation), the unit of every ResNet block."""
+    """Conv → BatchNorm → ``act`` (None: no activation), the unit of every
+    ResNet block."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, act=None):
         super().__init__()
         self.conv = Conv(cin, cout, kernel, stride, dtype=dtype)
-        self.bn = BatchNorm(cout, dtype=dtype)
+        self.bn = BatchNorm(cout, dtype=dtype, act=act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x))
@@ -173,15 +167,14 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1,
                  dtype=torch.bfloat16):
         super().__init__()
-        self.conv1 = ConvBN(cin, cout, 3, stride, dtype)
+        self.conv1 = ConvBN(cin, cout, 3, stride, dtype, act="relu")
         self.conv2 = ConvBN(cout, cout, 3, 1, dtype)
         self.proj = (ConvBN(cin, cout, 1, stride, dtype)
                      if (stride != 1 or cin != cout) else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip = x if self.proj is None else self.proj(x)
-        y = F.relu(self.conv1(x))
-        y = self.conv2(y)
+        y = self.conv2(self.conv1(x))
         return F.relu(y + skip)   # the residual add rounds in dtype
 
 
@@ -194,17 +187,15 @@ class Bottleneck(nn.Module):
                  dtype=torch.bfloat16):
         super().__init__()
         cexp = cout * self.expansion
-        self.conv1 = ConvBN(cin, cout, 1, 1, dtype)
-        self.conv2 = ConvBN(cout, cout, 3, stride, dtype)
+        self.conv1 = ConvBN(cin, cout, 1, 1, dtype, act="relu")
+        self.conv2 = ConvBN(cout, cout, 3, stride, dtype, act="relu")
         self.conv3 = ConvBN(cout, cexp, 1, 1, dtype)
         self.proj = (ConvBN(cin, cexp, 1, stride, dtype)
                      if (stride != 1 or cin != cexp) else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip = x if self.proj is None else self.proj(x)
-        y = F.relu(self.conv1(x))
-        y = F.relu(self.conv2(y))
-        y = self.conv3(y)
+        y = self.conv3(self.conv2(self.conv1(x)))
         return F.relu(y + skip)
 
 
@@ -217,7 +208,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.stage_sizes = tuple(stage_sizes)
-        self.stem = ConvBN(3, widths[0], 7, 2, dtype)
+        self.stem = ConvBN(3, widths[0], 7, 2, dtype, act="relu")
         blocks = []
         cin = widths[0]
         for stage, (n, cout) in enumerate(zip(stage_sizes, widths)):
@@ -231,7 +222,7 @@ class ResNet(nn.Module):
     def stem_pool(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) → (B, 64, H/4, W/4): the stem conv, ReLU and the
         3×3/2 max-pool (``SAME``, padded with -inf)."""
-        x = F.relu(self.stem(x.to(self.dtype)))
+        x = self.stem(x.to(self.dtype))
         x, pad = pad_same(x, 3, 2, value=float("-inf"))
         return F.max_pool2d(x, 3, 2, padding=pad)
 
