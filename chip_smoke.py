@@ -333,11 +333,18 @@ HBM_BYTES_PER_S = 3.35e12
 # phase 4: BatchNorm maps at 384² (batch, channels, side) with the
 # activation each folds in: ResNet-18's (the stem, the stages, the head) at
 # B=8, then the benchmark's grids: ResNet-18's stem at B=128, ResNet-50's
-# stem, its first stage's wide map and its last stage's map at B=64
+# stem, its first stage's wide map and its last stage's map at B=64, and
+# HRNet-W32's maps at B=128 that no ResNet has: the stride-4 branch (C=32
+# over 96², with and without its ReLU), the exchange units' maps without
+# one, the other branches and the head's widest map at stride 32
 BN_CASES = ((8, 64, 192, "relu"), (8, 64, 96, "relu"), (8, 64, 96, None),
             (8, 128, 48, "relu"), (8, 256, 24, None), (8, 512, 12, "relu"),
             (8, 512, 12, "leaky_relu"), (128, 64, 192, "relu"),
-            (64, 64, 192, "relu"), (64, 256, 96, None), (64, 2048, 12, None))
+            (64, 64, 192, "relu"), (64, 256, 96, None), (64, 2048, 12, None),
+            (128, 32, 96, "relu"), (128, 32, 96, None), (128, 32, 48, None),
+            (128, 32, 12, None), (128, 64, 48, None), (128, 64, 24, "relu"),
+            (128, 128, 24, None), (128, 128, 12, None),
+            (128, 256, 12, "relu"), (128, 1024, 12, None))
 BN_EPS, BN_MOMENTUM = 1e-5, 0.9
 PINNED_PCKH, PINNED_JOINTS = 0.9921, 378
 # flip-TTA on the same protocol: the JAX package's value on its CPU

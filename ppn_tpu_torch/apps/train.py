@@ -79,7 +79,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="EMA of params for eval/inference (e.g. 0.999); "
                         "0 disables (default from config)")
     p.add_argument("--backbone", default=None,
-                   choices=["resnet18", "resnet34", "resnet50"],
+                   choices=["resnet18", "resnet34", "resnet50", "hrnet_w32"],
                    help="override the config's backbone")
     p.add_argument("--pretrained", default=None, metavar="PATH",
                    help="torchvision-format ResNet .pth to initialize the "

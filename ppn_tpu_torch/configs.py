@@ -343,11 +343,28 @@ _REGISTRY = {
 }
 
 
+def mpii_hrw32_384() -> Config:
+    """The flagship's head, grid and geometry on the HRNet-W32 trunk
+    (``nn/hrnet.py``; Sun et al. CVPR 2019, Wang et al. TPAMI 2020)."""
+    return Config(
+        name="mpii_hrw32_384",
+        model=PPNConfig(backbone="hrnet_w32"),
+    )
+
+
+# Named configs of the port alone: the JAX package has no HRNet, and
+# _REGISTRY stays the JAX package's own list.
+_PORT_REGISTRY = {
+    "mpii_hrw32_384": mpii_hrw32_384,
+}
+
+
 def get_config(name: str, **overrides) -> Config:
     """Look up a named config; `overrides` apply to the top-level Config."""
-    if name not in _REGISTRY:
-        raise KeyError(f"unknown config {name!r}; have {sorted(_REGISTRY)}")
-    cfg = _REGISTRY[name]()
+    table = {**_REGISTRY, **_PORT_REGISTRY}
+    if name not in table:
+        raise KeyError(f"unknown config {name!r}; have {sorted(table)}")
+    cfg = table[name]()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg

@@ -16,10 +16,11 @@ import torch
 from torch import nn
 
 from ppn_tpu_torch.configs import PPNConfig
+from ppn_tpu_torch.nn.hrnet import HRNet
 from ppn_tpu_torch.nn.resnet import Conv, ConvBN, resnet18, resnet34, resnet50
 
 _BACKBONES = {"resnet18": resnet18, "resnet34": resnet34,
-              "resnet50": resnet50}
+              "resnet50": resnet50, "hrnet_w32": HRNet}
 # TrainConfig.dtype → compute dtype
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 

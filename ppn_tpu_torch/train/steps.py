@@ -197,8 +197,14 @@ def forward_backward(cfg: Config, model: PoseProposalNet,
 
 
 def grad_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The global norm of the gradients, summed in ``grads``' order."""
-    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()))
+    """The global norm of the gradients. On a CUDA device, the norm of
+    their norms in a few multi-tensor launches (tree reductions); on the
+    CPU, whose ``_foreach_norm`` adds in one running f32 sum (rel 8e-5 off
+    over 4M values), their squares summed in ``grads``' order."""
+    gs = list(grads.values())
+    if gs[0].is_cuda:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
 
 
 def average_over_data(mesh, tensors: Dict[str, torch.Tensor]
@@ -229,8 +235,12 @@ def sgd_update(cfg: Config, state: TrainState,
     ``e·d + p·(1 − d)``; the step count advances."""
     t = cfg.train
     names, params = zip(*state.model.named_parameters())
-    decayed = [grads[n] + t.weight_decay * p if p.ndim > 1 else grads[n]
-               for n, p in zip(names, params)]
+    decayed = [grads[n] for n in names]
+    wide = [i for i, p in enumerate(params) if p.ndim > 1]
+    decay = torch._foreach_mul([params[i] for i in wide], t.weight_decay)
+    torch._foreach_add_(decay, [decayed[i] for i in wide])   # g + wd·p
+    for i, d in zip(wide, decay):
+        decayed[i] = d
     traces = [state.trace[n] for n in names]
     torch._foreach_mul_(traces, t.momentum)
     torch._foreach_add_(traces, decayed)          # g + μ·trace

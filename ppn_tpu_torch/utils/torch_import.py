@@ -102,6 +102,9 @@ def load_torch_resnet(backbone: ResNet, state_dict: Mapping[str, torch.Tensor],
 def load_torch_resnet_file(backbone: ResNet, path: str) -> int:
     """Load a ``.pth`` torchvision checkpoint (a ``state_dict``, or a dict
     holding one under ``state_dict``) into ``backbone``, strictly."""
+    if not isinstance(backbone, ResNet):
+        raise ValueError(f"torchvision ResNet weights need a ResNet backbone, "
+                         f"not {type(backbone).__name__}")
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]

@@ -27,12 +27,17 @@ pytestmark = [pytest.mark.cuda,
 EPS, MOMENTUM = 1e-5, 0.9
 ACTS = [None, "relu", "leaky_relu"]
 DTYPES = [torch.float32, torch.bfloat16]
-# (channels, side) of every distinct BatchNorm map of ResNet-18 and
-# ResNet-50 at 384², the head's included
+# (channels, side) of every distinct BatchNorm map of ResNet-18, ResNet-50
+# and HRNet-W32 at 384², the head's included
 R18 = [(64, 192), (64, 96), (128, 48), (256, 24), (512, 12)]
 R50 = [(64, 192), (64, 96), (256, 96), (128, 96), (128, 48), (512, 48),
        (256, 48), (256, 24), (1024, 24), (512, 24), (512, 12), (2048, 12)]
-SHAPES = [(8, c, s) for c, s in sorted(set(R18 + R50))] + [(128, 64, 192)]
+HRW32 = [(32, 96), (32, 48), (32, 24), (32, 12), (64, 192), (64, 96),
+         (64, 48), (64, 24), (64, 12), (128, 96), (128, 24), (128, 12),
+         (256, 96), (256, 48), (256, 12), (512, 24), (512, 12), (1024, 12),
+         (2048, 12)]
+SHAPES = ([(8, c, s) for c, s in sorted(set(R18 + R50 + HRW32))]
+          + [(128, 64, 192), (128, 32, 96)])
 
 
 @pytest.fixture

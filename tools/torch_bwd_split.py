@@ -171,6 +171,7 @@ def main(argv=None):
 
     from ppn_tpu_torch import resolve_device
     from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.nn.resnet import ResNet
     from ppn_tpu_torch.train.steps import create_train_state
     from ppn_tpu_torch.utils.profiling import (device_busy_ms,
                                                device_latency_ms, host_bound)
@@ -179,6 +180,9 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = get_config(args.config)
     model = create_train_state(cfg, device=dev).model.train()
+    if not isinstance(model.backbone, ResNet):
+        raise ValueError(f"the stages are a ResNet's; {cfg.model.backbone!r} "
+                         f"is not one")
     H, W = cfg.model.insize
     names = args.stages.split(",")
 

@@ -139,6 +139,7 @@ def main(argv=None):
 
     from ppn_tpu_torch import resolve_device
     from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.nn.resnet import ResNet
     from ppn_tpu_torch.train.steps import create_train_state
     from ppn_tpu_torch.utils.profiling import (device_busy_ms,
                                                device_latency_ms, host_bound)
@@ -147,6 +148,9 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = get_config(args.config)
     model = create_train_state(cfg, seed=0, device=dev).model.eval()
+    if not isinstance(model.backbone, ResNet):
+        raise ValueError(f"the stages are a ResNet's; {cfg.model.backbone!r} "
+                         f"is not one")
     B = args.batch
     img = torch.from_numpy(np.random.default_rng(0).random(
         (B, *cfg.model.insize, 3), np.float32)).to(dev)

@@ -98,6 +98,7 @@ def main(argv=None):
     from ppn_tpu_torch.configs import get_config
     from ppn_tpu_torch.data.pipeline import collate
     from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from ppn_tpu_torch.nn.resnet import ResNet
     from ppn_tpu_torch.ops.augment import augment_batch
     from ppn_tpu_torch.ops.encode import encode_batch
     from ppn_tpu_torch.train.loss import ppn_loss
@@ -115,11 +116,14 @@ def main(argv=None):
             cfg, train=dataclasses.replace(cfg.train,
                                            batch_size=args.batch))
     m = cfg.model
+    state = create_train_state(cfg, device=dev)
+    if not isinstance(state.model.backbone, ResNet):
+        raise ValueError(f"the stages are a ResNet's; {cfg.model.backbone!r} "
+                         f"is not one")
 
     ds = SyntheticPoseDataset(cfg, size=args.batch, seed=0, cache=True)
     host = collate([ds[i] for i in range(args.batch)])
     batch = {k: torch.from_numpy(host[k]).to(dev) for k in BATCH_KEYS}
-    state = create_train_state(cfg, device=dev)
     busy, bound = {}, {}
 
     def progress(msg):
