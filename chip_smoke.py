@@ -176,11 +176,17 @@ Phases, each raising on failure:
                decisions equal to the plain pipeline's, fps;
 24. K-step loop — mpii_r18_384, B=32, bf16, augmentation on, constant lr,
                from the snapshot: one ``make_multi_train_step`` call of K=4
-               on a cached index block against 4 ``train_step`` calls on
-               the same block, the whole state and the mean terms bitwise,
-               exactly 4 warp launches in the call and 6 ``ppn_bn_*``
-               launches per BatchNorm layer and step; ms per step of K-step
-               calls and of per-step calls, in turns;
+               on a cached index block (its first step eager, the rest
+               replays of its CUDA graph) against 4 ``train_step`` calls on
+               the same block, the whole state and the mean terms bitwise;
+               in a profiler trace of a second call, all replays, exactly
+               4 ``ppn_warp_kernel`` kernels and 6 ``ppn_bn_*`` kernels per
+               BatchNorm layer and step; ms per step of K-step calls and of
+               per-step calls, in turns; then at the benchmark's sizes
+               (K=8, B=128, ResNet-18 and HRNet-W32 from a seeded init,
+               cuDNN deterministic) two calls against 16 ``train_step``
+               calls, bitwise, the second call's kernels by trace the same
+               as the eager steps', and the peak memory of each;
 25. sharded cache — two spawned ranks share cuda:0 in a gloo world: a
                ``DeviceCache(mesh=)`` of the 256 cached images (128 rows
                per rank), its gathered slices bitwise the replicated
@@ -419,6 +425,10 @@ NATIVE_SET_ORIGIN = {
                 "34be58f8ec08a71e725f926e54dc720e")}
 POOL_JOBS = 128          # phase 23: images through the pool per timing
 K_STEPS = 4              # phase 24: steps per K-step call
+# phase 24 at the benchmark's sizes: the configs, batch and steps per call
+GRAPH_CONFIGS, GRAPH_B, GRAPH_K = ("mpii_r18_384", "mpii_hrw32_384"), 128, 8
+# phase 24: the kernels counted by name in a profiler trace of a call
+GRAPH_KERNELS = ("ppn_warp_kernel", "ppn_bn_")
 SHARDED_BLOCKS = 4       # phase 25: global blocks gathered and compared
 # phase 26: the suite's twelve configs, each at its reference defaults
 BENCH_CONFIGS = ("1", "2", "3", "3b", "3c", "4", "4b", "5", "5p", "6", "7",
@@ -1557,12 +1567,13 @@ def bn_phase(dev, card: str) -> dict:
 
 def k_step_phase(cfg, cache, dev, card: str) -> dict:
     """Phase 24: one K-step call against K ``train_step`` calls on the same
-    block, bitwise, its warp launches, then ms per step of both, in
-    turns."""
+    block, bitwise; the ``ppn_warp_kernel`` and ``ppn_bn_*`` kernels that a
+    second call, whose steps all replay its CUDA graph, runs by a profiler
+    trace; then ms per step of both, in turns."""
     from ppn_tpu_torch.nn.resnet import BatchNorm
-    from ppn_tpu_torch.ops import cuda_bn, cuda_warp
     from ppn_tpu_torch.train import steps as st
     from ppn_tpu_torch.utils.params_io import load_npz_into_train_state
+    from ppn_tpu_torch.utils.profiling import kernel_records
 
     kcfg = constant_lr(cfg, steps_per_call=K_STEPS)
     B = kcfg.train.batch_size
@@ -1580,15 +1591,16 @@ def k_step_phase(cfg, cache, dev, card: str) -> dict:
                                      steps_per_call=K_STEPS)
     per = [st.train_step(kcfg, b, cache.batch(i), augment=True) for i in idx]
     torch.cuda.synchronize()
-    cuda_warp.LAUNCHES = cuda_bn.LAUNCHES = 0
     got = multi(a, cache, idx)
     torch.cuda.synchronize()
-    launches, bn_launches = cuda_warp.LAUNCHES, cuda_bn.LAUNCHES
     bn_layers = sum(isinstance(m, BatchNorm) for m in a.model.modules())
     mean = {k: torch.stack([t[k] for t in per]).mean(0) for k in per[0]}
     terms_equal = got.keys() == mean.keys() and all(
         torch.equal(v, mean[k]) for k, v in got.items())
     state_equal = same_state(a, b)
+    _, records = kernel_records(multi, a, cache, block(), device=dev,
+                                names=GRAPH_KERNELS)
+    launches, bn_launches = (records[n] for n in GRAPH_KERNELS)
     k_ms, s_ms = [], []
     for _ in range(4):                  # in turns: K-step, per-step
         for label, ms in (("k", k_ms), ("s", s_ms)):
@@ -1613,15 +1625,102 @@ def k_step_phase(cfg, cache, dev, card: str) -> dict:
         f"snapshot: one make_multi_train_step call against {K_STEPS} "
         f"train_step calls on the same block, state bitwise {state_equal}, "
         f"mean terms bitwise {terms_equal} (loss_total "
-        f"{out['loss_total']:.6f}); ppn_warp_kernel launches in the call "
-        f"{launches}, ppn_bn_* launches {bn_launches} ({bn_layers} BatchNorm "
-        f"layers); ms per step (host clock around synchronized blocks of "
-        f"{K_STEPS} steps, median of 4 in turns): K-step "
+        f"{out['loss_total']:.6f}); in a profiler trace of a second call, "
+        f"all replays, ppn_warp_kernel kernels {launches}, ppn_bn_* kernels "
+        f"{bn_launches} ({bn_layers} BatchNorm layers); ms per step (host "
+        f"clock around synchronized blocks of {K_STEPS} steps, median of 4 "
+        f"in turns): K-step "
         f"{out['k_step_ms_per_step']:.3f}, per-step "
         f"{out['per_step_ms_per_step']:.3f} | {card}")
     if (not state_equal or not terms_equal or launches != K_STEPS
             or bn_launches != 6 * bn_layers * K_STEPS):
         raise AssertionError(f"K-step loop: {out}")
+    del multi, a, b
+    torch.cuda.empty_cache()
+    out["bench_sizes"] = {name: k_step_graph_case(name, cache, dev, card)
+                          for name in GRAPH_CONFIGS}
+    return out
+
+
+def k_step_graph_case(name: str, cache, dev, card: str) -> dict:
+    """Phase 24 at the benchmark's sizes: two K=8 calls of B=128 on a seeded
+    ``name`` state (the first's first step eager, then a CUDA graph
+    captured and replayed for the other fifteen steps) against 16
+    ``train_step`` calls of a twin on the same blocks: the whole state and
+    each call's mean terms bitwise; the ``ppn_warp_kernel`` and
+    ``ppn_bn_*`` kernels of the second call, all replays, by a profiler
+    trace against those of the eager steps on its block; the peak memory
+    of each. cuDNN is held to its deterministic algorithms, so that eager
+    steps are bitwise each other at this size."""
+    from ppn_tpu_torch.configs import get_config
+    from ppn_tpu_torch.train import steps as st
+    from ppn_tpu_torch.utils.profiling import kernel_records
+
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=GRAPH_B, steps_per_call=GRAPH_K))
+    rng = np.random.default_rng(2401)
+    blocks = [np.stack([rng.choice(TRAIN_IMAGES, GRAPH_B, replace=False)
+                        for _ in range(GRAPH_K)]).astype(np.int32)
+              for _ in range(2)]
+
+    def eager_call(state, idx):
+        per = [st.train_step(cfg, state, cache.batch(i), augment=True)
+               for i in idx]
+        return {k: torch.stack([t[k] for t in per]).mean(0) for k in per[0]}
+
+    def counters():
+        return [st.EAGER_STEPS, st.GRAPH_CAPTURES, st.GRAPH_REPLAYS]
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        b = st.create_train_state(cfg, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        want = [eager_call(b, blocks[0])]
+        out, eager = kernel_records(eager_call, b, blocks[1], device=dev,
+                                    names=GRAPH_KERNELS)
+        want.append(out)
+        eager_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        a = st.create_train_state(cfg, device=dev)
+        multi = st.make_multi_train_step(cfg, augment=True,
+                                         steps_per_call=GRAPH_K)
+        torch.cuda.reset_peak_memory_stats()
+        c0 = counters()
+        got = [multi(a, cache, blocks[0])]
+        out, replayed = kernel_records(multi, a, cache, blocks[1],
+                                       device=dev, names=GRAPH_KERNELS)
+        got.append(out)
+        graph = [x - y for x, y in zip(counters(), c0)]
+        graph_peak = torch.cuda.max_memory_allocated()
+        state_equal = same_state(a, b)
+        terms_equal = all(
+            g.keys() == w.keys() and all(torch.equal(v, w[k])
+                                         for k, v in g.items())
+            for g, w in zip(got, want))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del multi, a, b
+    torch.cuda.empty_cache()
+    out = {"state_equal": state_equal, "terms_equal": terms_equal,
+           "graph_counts": graph, "replayed_kernels": replayed,
+           "eager_kernels": eager, "eager_peak_gb": eager_peak / 1e9,
+           "graph_peak_gb": graph_peak / 1e9,
+           "loss_total": [float(t["loss_total"]) for t in got]}
+    log(f"[kstep] {name} K={GRAPH_K} B={GRAPH_B} bf16 from a seeded init: "
+        f"two make_multi_train_step calls (1 eager step, a capture, "
+        f"{2 * GRAPH_K - 1} replays: counters {graph}) against "
+        f"{2 * GRAPH_K} train_step calls, state bitwise {state_equal}, mean "
+        f"terms bitwise {terms_equal} (loss_total {out['loss_total']}); in "
+        f"profiler traces of the second block, kernels of the replays "
+        f"{replayed} against the eager steps' {eager}; peak memory "
+        f"{out['graph_peak_gb']:.2f} GB against {out['eager_peak_gb']:.2f} "
+        f"GB | {card}")
+    if (not state_equal or not terms_equal or replayed != eager
+            or graph != [1, 1, 2 * GRAPH_K - 1]
+            or eager["ppn_warp_kernel"] != GRAPH_K or eager["ppn_bn_"] == 0):
+        raise AssertionError(f"K-step graph at {name}: {out}")
     return out
 
 
@@ -1882,8 +1981,8 @@ def expected_bench_launches(c: str, rec: dict) -> tuple[int, int]:
     if c in ("3", "3b"):   # one warm-up step, the host loop, the slope
         return 0, (1 + default(fn, "iters")
                    + slope_calls(default(fn, "device_iters")))
-    if c == "3c":      # a warm-up call and the timed calls of k steps
-        return 0, (1 + default(fn, "iters")) * default(fn, "k")
+    if c == "3c":      # the warm-up call's first step and its capture of
+        return 0, 2    # a step's CUDA graph; the replays call no wrapper
     if c == "4b":
         return (timeit_calls(default(fn, "iters"))
                 + slope_calls(default(fn, "device_iters")), 0)

@@ -16,6 +16,19 @@ from __future__ import annotations
 import torch
 
 
+_CONSTANTS: dict = {}
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small read-only tensor of ``values`` on ``device``, made once per
+    process: made from host values at each call, it would be an upload
+    that waits on the stream, which a CUDA graph cannot capture."""
+    key = (tuple(values), dtype, torch.device(device))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype, device=device)
+    return _CONSTANTS[key]
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another. Raises when CUDA is asked for (or defaulted to) but absent —

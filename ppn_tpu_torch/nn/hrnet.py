@@ -42,7 +42,8 @@ from torch import nn
 
 from ppn_tpu_torch.nn.resnet import BasicBlock, Bottleneck, ConvBN
 
-# Exchange units run in this process (8 a forward of HRNet-W32).
+# Exchange units run in this process (8 a forward of HRNet-W32; a forward
+# under CUDA graph capture counts, its replays do not).
 FUSES = 0
 
 FUSE_SPAN = "ppn.hrnet.fuse"

@@ -21,7 +21,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from ppn_tpu_torch import resolve_device
+from ppn_tpu_torch import constant, resolve_device
 from ppn_tpu_torch.configs import DataConfig, PPNConfig
 from ppn_tpu_torch.ops.cuda_warp import affine_warp_batch
 from ppn_tpu_torch.ops.image import apply_affine_points, make_affine
@@ -92,10 +92,9 @@ def sample_params(cfg: PPNConfig, dcfg: DataConfig,
     trans = torch.stack(
         [uniform(2, -dcfg.translate_frac, dcfg.translate_frac),
          uniform(3, -dcfg.translate_frac, dcfg.translate_frac)], -1
-    ) * torch.tensor([W, H], dtype=torch.float32, device=dev)
+    ) * constant((W, H), torch.float32, dev)
     flip = u[:, 4] < dcfg.hflip_prob
-    center = torch.tensor([W / 2.0, H / 2.0], dtype=torch.float32,
-                          device=dev).expand(B, 2)
+    center = constant((W / 2.0, H / 2.0), torch.float32, dev).expand(B, 2)
 
     # Person-centric crop/zoom: recenter the same affine on a random
     # annotated person (Gumbel-max categorical over the valid slots, as
@@ -162,7 +161,7 @@ def transform_gt(cfg: PPNConfig, fwd: torch.Tensor, scale: torch.Tensor,
     new_boxes = torch.cat([centers, wh], dim=-1)
 
     # flip ⇒ swap left/right keypoint classes
-    perm = flip_permutation(cfg)
+    perm = constant(flip_permutation(cfg), torch.long, kp.device)
     f = flip.view(-1, 1, 1)
     kp = torch.where(f[..., None], kp[:, :, perm], kp)
     vis = torch.where(f, visible[:, :, perm], visible)

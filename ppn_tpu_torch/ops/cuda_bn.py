@@ -33,7 +33,8 @@ LEAKY_SLOPE = 0.1            # the head's LeakyReLU
 
 # Kernel launches of ppn_bn_* in this process: 3 per forward (partial sums,
 # their reduction, the apply), 3 per backward (2 when no input gradient is
-# asked for).
+# asked for). Counted per call: a call under CUDA graph capture counts, its
+# replays do not.
 LAUNCHES = 0
 
 _lib = None

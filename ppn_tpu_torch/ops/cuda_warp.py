@@ -20,7 +20,7 @@ from ppn_tpu_torch.ops.image import affine_warp_separable_plain
 SOURCE = "warp.cu"
 
 # Launches of ppn_warp_kernel in this process (one per wrapper call on a
-# CUDA tensor).
+# CUDA tensor: a call under CUDA graph capture counts, its replays do not).
 LAUNCHES = 0
 
 _lib = None

@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from ppn_tpu_torch import constant
 from ppn_tpu_torch.configs import PPNConfig
 
 
@@ -113,8 +114,8 @@ def encode_batch(cfg: PPNConfig, keypoints: torch.Tensor,
     tx, ty, tw, th = picked.unbind(-1)
 
     # ---- limb connectivity te ---------------------------------------------
-    src = torch.tensor([e[0] for e in cfg.edges], device=dev)
-    dst = torch.tensor([e[1] for e in cfg.edges], device=dev)
+    src = constant([e[0] for e in cfg.edges], torch.long, dev)
+    dst = constant([e[1] for e in cfg.edges], torch.long, dev)
     iy_src = iy[:, :, src]                                         # (B,P,L)
     ix_src = ix[:, :, src]
     dy = iy[:, :, dst] - iy_src + Hl // 2

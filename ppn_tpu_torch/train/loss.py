@@ -21,6 +21,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ppn_tpu_torch import constant
 from ppn_tpu_torch.configs import PPNConfig
 from ppn_tpu_torch.ops import boxes as boxops
 from ppn_tpu_torch.ops import decode as dec
@@ -33,8 +34,8 @@ def limb_mask(cfg: PPNConfig, delta: torch.Tensor) -> torch.Tensor:
     H, W = cfg.outsize
     Hl, Wl = cfg.local_grid_size
     ch, cw = Hl // 2, Wl // 2
-    src = [s for s, _ in cfg.edges]
-    dst = [d for _, d in cfg.edges]
+    src = constant([s for s, _ in cfg.edges], torch.long, delta.device)
+    dst = constant([d for _, d in cfg.edges], torch.long, delta.device)
 
     d_src = delta[..., src]                                  # (B, H, W, L)
     padded = F.pad(delta[..., dst], (0, 0, cw, cw, ch, ch))

@@ -11,7 +11,9 @@ term by term: ``g ← g + wd·p`` on parameters with ``ndim > 1`` only,
 ``trace ← g + 0.9·trace``, ``p ← p + (−lr)·trace``, with ``lr`` the
 schedule at the number of steps already taken (0 on the first step under
 warmup). ``make_multi_train_step`` runs K such steps per call over
-batches gathered from a ``DeviceCache`` by a (K, B) index block.
+batches gathered from a ``DeviceCache`` by a (K, B) index block; on one
+CUDA device it captures a step as a CUDA graph and replays it, so that a
+step's thousands of kernels go to the card as one launch.
 
 Data parallel (``mesh`` of more than one rank, ``parallel/mesh.py``): each
 rank augments and encodes its slice of the global batch, BatchNorm takes
@@ -41,6 +43,16 @@ from ppn_tpu_torch.ops.tta import flip_tta_forward
 from ppn_tpu_torch.train.loss import ppn_loss
 
 BATCH_KEYS = ("image", "keypoints", "visible", "bboxes", "valid")
+
+# How often the K-step call's CUDA graph engages, in this process: graphs
+# captured, steps replayed from one, steps of K-step calls run eagerly.
+# The counters that the step's own Python code keeps (``cuda_bn.LAUNCHES``,
+# ``cuda_warp.LAUNCHES``, ``hrnet.FUSES``) see a capture and no replay; a
+# profiler trace counts the kernels that run (``utils/profiling``'s
+# ``kernel_records``).
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
+EAGER_STEPS = 0
 
 
 @dataclasses.dataclass
@@ -233,6 +245,17 @@ def sgd_update(cfg: Config, state: TrainState,
     """One optimizer step on ``state`` in place: masked weight decay,
     momentum, the scheduled learning rate, then the EMA of the parameters
     ``e·d + p·(1 − d)``; the step count advances."""
+    apply_update(cfg, state, grads, -make_lr_schedule(cfg)(state.step))
+    state.step += 1
+
+
+@torch.no_grad()
+def apply_update(cfg: Config, state: TrainState,
+                 grads: Dict[str, torch.Tensor], neg_lr) -> None:
+    """``sgd_update``'s arithmetic with the negated learning rate given, a
+    float or a 0-d f32 tensor on the state's device (which a CUDA graph
+    reads at each replay; the product is the same f32 multiply), and the
+    step count left as it is."""
     t = cfg.train
     names, params = zip(*state.model.named_parameters())
     decayed = [grads[n] for n in names]
@@ -244,14 +267,12 @@ def sgd_update(cfg: Config, state: TrainState,
     traces = [state.trace[n] for n in names]
     torch._foreach_mul_(traces, t.momentum)
     torch._foreach_add_(traces, decayed)          # g + μ·trace
-    lr = make_lr_schedule(cfg)(state.step)
-    torch._foreach_add_(list(params), torch._foreach_mul(traces, -lr))
+    torch._foreach_add_(list(params), torch._foreach_mul(traces, neg_lr))
     if state.ema is not None:
         d = t.ema_decay
         ema = [state.ema[n] for n in names]
         torch._foreach_mul_(ema, d)
         torch._foreach_add_(ema, torch._foreach_mul(list(params), 1.0 - d))
-    state.step += 1
 
 
 def train_step(cfg: Config, state: TrainState, batch,
@@ -274,31 +295,105 @@ def train_step(cfg: Config, state: TrainState, batch,
 def make_multi_train_step(cfg: Config, augment: bool = True,
                           steps_per_call: int = 8, mesh=None):
     """K = ``steps_per_call`` SGD steps per call over a device-resident
-    dataset (the JAX package's ``lax.scan`` loop, written eagerly).
+    dataset (the JAX package's ``lax.scan`` loop).
 
     Returns ``multi_step(state, cache, idx) -> mean_terms``: ``cache`` is a
     ``data/device_cache.DeviceCache`` (under ``mesh``, sharded or not: its
     ``batch`` gives this rank's slice), ``idx`` a (K, B) block of global
     sample indices; the state advances K steps in place and the loss terms,
-    ``grad_norm`` included, come back averaged over the K steps. Each step
-    is one ``train_step`` on ``cache.batch(idx[k])``, the same kernels in
-    the same order, so K steps here are bitwise K ``train_step`` calls on
-    the same batches."""
+    ``grad_norm`` included, come back averaged over the K steps. Step k
+    takes ``cache.batch(idx[k])``, called just before it.
+
+    On the CPU and under a process group each step is one ``train_step``.
+    On one CUDA device the first step runs eagerly, then one step is
+    captured as a CUDA graph (``_StepGraph``) and every later step replays
+    it, captured anew when the state or the batch's shapes change. Either
+    way a step runs the same kernels in the same order, so K steps here are
+    bitwise K ``train_step`` calls on the same batches."""
     k = int(steps_per_call)
     if k < 1:
         raise ValueError(f"steps_per_call {steps_per_call} must be >= 1")
+    schedule = make_lr_schedule(cfg)
+    graph: Optional[_StepGraph] = None
 
     def multi_step(state: TrainState, cache, idx) -> Dict[str, torch.Tensor]:
+        global EAGER_STEPS, GRAPH_CAPTURES, GRAPH_REPLAYS
+        nonlocal graph
         idx = np.asarray(idx)
         if idx.ndim != 2 or len(idx) != k:
             raise ValueError(f"an index block of shape {idx.shape}; "
                              f"expected ({k}, batch)")
-        terms = [train_step(cfg, state, cache.batch(i), augment, mesh)
-                 for i in idx]
+        use_graph = (state.device.type == "cuda"
+                     and (mesh is None or mesh.group() is None))
+        bound = _state_key(state) if use_graph else None
+        terms = []
+        for i in idx:
+            batch = cache.batch(i)
+            if graph is not None and graph.key != (bound, _batch_key(batch)):
+                graph = None
+            if graph is not None:
+                terms.append(graph.replay(batch, schedule(state.step)))
+                state.step += 1
+                GRAPH_REPLAYS += 1
+                continue
+            terms.append(train_step(cfg, state, batch, augment, mesh))
+            EAGER_STEPS += 1
+            if use_graph:
+                graph = _StepGraph(cfg, state, batch, augment)
+                GRAPH_CAPTURES += 1
         return {name: torch.stack([t[name] for t in terms]).mean(0)
                 for name in terms[0]}
 
     return multi_step
+
+
+def _state_key(state: TrainState) -> tuple:
+    """What a captured step binds of ``state``: the object, its generator
+    and where each of its tensors lies (an in-place copy keeps them)."""
+    tensors = [*state.model.parameters(), *state.model.buffers(),
+               *state.trace.values(), *(state.ema or {}).values()]
+    return (id(state), id(state.generator),
+            tuple(t.data_ptr() for t in tensors))
+
+
+def _batch_key(batch: Dict[str, torch.Tensor]) -> tuple:
+    return tuple((n, tuple(v.shape), v.dtype) for n, v in batch.items())
+
+
+class _StepGraph:
+    """One training step of one process (augment → encode → forward → loss
+    → backward → ``grad_norm`` → ``apply_update``) captured as a CUDA graph
+    over static copies of a batch. It updates the state's parameters,
+    traces, EMA and BatchNorm statistics where they lie, reads the learning
+    rate from a 0-d tensor filled before each replay, and draws from the
+    state's generator, registered with the graph so that each replay draws
+    anew and advances it as an eager step does. Capture launches nothing;
+    ``torch.cuda.graph`` frees the cached memory of earlier steps first."""
+
+    def __init__(self, cfg: Config, state: TrainState,
+                 batch: Dict[str, torch.Tensor], augment: bool):
+        self.state = state               # keeps ``key``'s id its own
+        self.key = (_state_key(state), _batch_key(batch))
+        self.batch = {n: v.clone() for n, v in batch.items()}
+        self.neg_lr = torch.zeros((), dtype=torch.float32,
+                                  device=state.device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(state.generator)
+        with torch.cuda.graph(self.graph):
+            terms, grads = loss_and_grads(cfg, state, self.batch, augment)
+            terms["grad_norm"] = grad_norm(grads)
+            apply_update(cfg, state, grads, self.neg_lr)
+        self.terms = terms
+
+    def replay(self, batch: Dict[str, torch.Tensor],
+               lr: float) -> Dict[str, torch.Tensor]:
+        """One step on ``batch`` at learning rate ``lr``; its loss terms
+        and ``grad_norm``, copied out of the graph's outputs."""
+        for n, v in self.batch.items():
+            v.copy_(batch[n])
+        self.neg_lr.fill_(-lr)
+        self.graph.replay()
+        return {n: v.clone() for n, v in self.terms.items()}
 
 
 def eval_loss_step(cfg: Config, state: TrainState,

@@ -9,6 +9,8 @@
 - ``device_busy_ms``: kernel time per call over a profiler window, by
   category (``window_busy_ms``); ``host_bound`` compares a call's time
   with it.
+- ``kernel_records``: how many device records of kernels by name one call
+  leaves, those a CUDA graph replays included.
 - ``latency_percentiles``: end-to-end ms per call, each call waited for.
 
 The device synchronized is the one the call's output tensors lie on (the
@@ -196,6 +198,27 @@ def device_busy_ms(fn: Callable, *args, device=None, calls: int = 3,
     out, share = best
     out.update(recorded=share, windows=windows)
     return out
+
+
+def kernel_records(fn: Callable, *args, names: tuple, device=None
+                   ) -> tuple[Any, dict]:
+    """``fn(*args)`` in a ``trace`` window on a CUDA ``device``: (its output,
+    for each of ``names`` the number of the window's kernel records whose
+    name holds it). The kernels of a replayed CUDA graph have records
+    too, though no launch call of their own. The window opens with
+    ``TRACE_MARKERS`` tiny kernels, as ``device_busy_ms``'s does, that no
+    name of the program's kernels matches."""
+    dev = resolve_device(device)
+    marker = torch.zeros(1, device=dev)
+    with trace(None, dev) as prof:
+        for _ in range(TRACE_MARKERS):
+            marker.add_(1.0)
+        torch.cuda.synchronize(dev)
+        out = fn(*args)
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda]
+    return out, {n: sum(n in k for k in kernels) for n in names}
 
 
 def host_bound(device_ms: float, busy: Optional[dict]) -> Optional[bool]:

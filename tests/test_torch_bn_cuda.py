@@ -237,14 +237,16 @@ def test_rejects_maps_off_16_bytes(device, dtype):
 
 
 def test_every_training_batch_norm_goes_through_the_kernels(device):
-    """One K=2 ``make_multi_train_step`` call on tiny_test: every
-    training-mode BatchNorm layer of the model launches the kernels' 3
-    forward and 3 backward kernels at each step."""
+    """K=2 ``make_multi_train_step`` calls on tiny_test: in a profiler
+    trace of the second, whose steps replay the call's CUDA graph, every
+    training-mode BatchNorm layer of the model runs the kernels' 3 forward
+    and 3 backward kernels at each step."""
     from ppn_tpu_torch.configs import get_config
     from ppn_tpu_torch.data.device_cache import DeviceCache
     from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
     from ppn_tpu_torch.nn.resnet import BatchNorm
     from ppn_tpu_torch.train import steps as st
+    from ppn_tpu_torch.utils.profiling import kernel_records
 
     cfg = get_config("tiny_test")
     K, B = 2, cfg.train.batch_size
@@ -255,8 +257,7 @@ def test_every_training_batch_norm_goes_through_the_kernels(device):
     assert layers == 21
     multi = st.make_multi_train_step(cfg, augment=True, steps_per_call=K)
     idx = np.arange(K * B, dtype=np.int32).reshape(K, B)
-    before = cuda_bn.LAUNCHES
-    terms = multi(state, cache, idx)
-    torch.cuda.synchronize()
-    assert cuda_bn.LAUNCHES - before == K * layers * 6
+    multi(state, cache, idx)
+    terms, n = kernel_records(multi, state, cache, idx, names=("ppn_bn_",))
+    assert n["ppn_bn_"] == K * layers * 6
     assert all(bool(torch.isfinite(t)) for t in terms.values())

@@ -5,7 +5,11 @@ of tests/test_multi_step.py on tiny_test.
 The port runs K ``train_step`` bodies over ``DeviceCache`` gathers, the
 same calls in the same order, so K steps per call are held **bitwise**
 against K ``train_step`` calls at K = 1, 2 and 4, with augmentation on
-(where the JAX package's scan is bitwise only at K=1). Against the JAX
+(where the JAX package's scan is bitwise only at K=1). On a CUDA device
+the call replays a CUDA graph of the step instead
+(tests/test_torch_graph_cuda.py); here it dispatches to the eager steps,
+and the update that the graph runs, with the learning rate read from a
+tensor, is held bitwise the scalar form. Against the JAX
 package's ``make_multi_train_step``, with augmentation off and f32 compute
 from the same state (tests/test_torch_train.py's per-step parity): at K=1
 and lr 0.05 the loss terms and grad_norm within rel 1e-4 and the new
@@ -115,6 +119,54 @@ def test_multi_step_carry_is_bitwise():
         m1(a, cache, idx)
     with pytest.raises(ValueError, match=">= 1"):
         st.make_multi_train_step(cfg, steps_per_call=0)
+
+
+def test_multi_step_on_the_cpu_runs_every_step_eagerly():
+    """A CPU state takes the eager path: each step of a call is one
+    ``train_step`` (``EAGER_STEPS`` rises by K a call) and no CUDA graph is
+    captured or replayed."""
+    cfg = _cfg(steps_per_call=2)
+    cache = DeviceCache(SyntheticPoseDataset(cfg, size=6, seed=0),
+                        device="cpu")
+    state = st.create_train_state(cfg, device="cpu")
+    before = st.EAGER_STEPS, st.GRAPH_CAPTURES, st.GRAPH_REPLAYS
+    multi = st.make_multi_train_step(cfg, augment=True, steps_per_call=2)
+    idx = np.arange(4, dtype=np.int32).reshape(2, 2)
+    for _ in range(2):
+        multi(state, cache, idx)
+    after = st.EAGER_STEPS, st.GRAPH_CAPTURES, st.GRAPH_REPLAYS
+    assert [b - a for a, b in zip(before, after)] == [4, 0, 0]
+    assert state.step == 4
+
+
+@pytest.mark.parametrize("schedule", ["constant", "cosine", "step"])
+def test_update_reading_the_lr_from_a_tensor_is_bitwise(schedule):
+    """``apply_update`` with the negated learning rate in a 0-d f32 tensor
+    (what the CUDA graph reads at each replay) against ``sgd_update``'s
+    scalar, over three steps with the same gradients: steps 1–3 at warm-up
+    2 and 5 steps cross the warm-up's end, and take the step schedule's
+    first decay (at 0.6 · 5 − 2 = 1 step after it) and the cosine's
+    descent. Parameters, traces and EMA bitwise."""
+    cfg = _cfg()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, lr_schedule=schedule, warmup_steps=2, num_steps=5))
+    a = st.create_train_state(cfg, device="cpu")
+    b = st.create_train_state(cfg, device="cpu")
+    a.step = b.step = 1
+    schedule_at = st.make_lr_schedule(cfg)
+    lrs = [schedule_at(s) for s in (1, 2, 3)]
+    assert 0 < lrs[0] < lrs[1], lrs
+    assert (lrs[2] == lrs[1]) == (schedule == "constant"), lrs
+    g = torch.Generator().manual_seed(3)
+    for _ in range(3):
+        grads = {n: torch.randn(p.shape, generator=g)
+                 for n, p in a.model.named_parameters()}
+        st.sgd_update(cfg, a, grads)
+        neg_lr = torch.tensor(-schedule_at(b.step), dtype=torch.float32)
+        st.apply_update(cfg, b, grads, neg_lr)
+        b.step += 1
+    _assert_same_state(a, b)
+    assert a.step == 4
 
 
 class _Rows:
