@@ -19,10 +19,15 @@ winner its window would otherwise have.
 ``write_mpii_set`` and ``write_coco_set`` write dataset trees in the MPII
 JSON and COCO ``person_keypoints`` layouts from synthetic samples, so the
 file loaders run on known GT with no dataset at hand.
+
+``replacing_config`` changes fields of every config ``get_config`` gives
+while it is open, for the tools that take no flag for them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 
@@ -240,3 +245,28 @@ def write_coco_set(root: str, dataset, n: int, ext: str = "png") -> None:
     for split in ("train2017", "val2017"):
         _dump(blob, os.path.join(root, "annotations",
                                  f"person_keypoints_{split}.json"))
+
+
+@contextlib.contextmanager
+def replacing_config(**sections):
+    """While open, ``ppn_tpu_torch.configs.get_config`` gives each config
+    with the fields of each named section replaced, as in
+    ``replacing_config(model={"backbone": "resnet34"})`` or
+    ``replacing_config(train={"dtype": "float32"})``. The tools read their
+    config through it at call time, so this sets what they take no flag
+    for."""
+    from ppn_tpu_torch import configs
+
+    get = configs.get_config
+
+    def patched(name, **overrides):
+        cfg = get(name, **overrides)
+        return dataclasses.replace(cfg, **{
+            k: dataclasses.replace(getattr(cfg, k), **v)
+            for k, v in sections.items()})
+
+    configs.get_config = patched
+    try:
+        yield
+    finally:
+        configs.get_config = get

@@ -1,4 +1,4 @@
-"""The port stands alone: no file of ppn_tpu_torch/ and not chip_smoke.py
+"""The port stands alone: no file of ppn_tpu_torch/, chip/ or chip_smoke.py
 imports jax, flax or the JAX package, and the entry points run on CUDA
 unless the caller asks for the CPU — without a GPU they raise instead of
 falling back.
@@ -14,6 +14,8 @@ only when given ``--out``."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -30,12 +32,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ppn_tpu", "grain",
 
 
 def _port_files():
-    pkg = os.path.join(ROOT, "ppn_tpu_torch")
-    tools = os.path.join(ROOT, "tools")
+    tools, chip = os.path.join(ROOT, "tools"), os.path.join(ROOT, "chip")
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(tools, n) for n in os.listdir(tools)
-        if n.startswith("torch_") and n.endswith(".py")]
-    for d, _, names in os.walk(pkg):
+        if n.startswith("torch_") and n.endswith(".py")] + [
+        os.path.join(chip, n) for n in os.listdir(chip) if n.endswith(".py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "ppn_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
 
@@ -159,6 +161,104 @@ def test_chip_smoke_fails_without_cuda(no_cuda, capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
+def test_chip_phases_are_one_registry_and_import_touches_no_device():
+    """``chip.PHASES`` numbers the card check's phases 1-30 in order under
+    unique names, each a function whose docstring starts with its number.
+    Importing chip_smoke and chip, and making a ``Context``, touches no
+    device and imports nothing of the port's package (in a fresh
+    interpreter with CUDA's initialization made to raise): the
+    kernel-times tool imports ``chip`` before it chooses which checkout's
+    ``ppn_tpu_torch`` to load."""
+    import chip
+
+    assert [n for n, _, _ in chip.PHASES] == list(range(1, 31))
+    names = [name for _, name, _ in chip.PHASES]
+    assert len(set(names)) == len(names)
+    for n, name, fn in chip.PHASES:
+        assert fn.__name__ == name
+        assert (fn.__doc__ or "").startswith(f"Phase {n}:"), name
+    code = ("import sys, torch\n"
+            "def touched(*a, **k):\n"
+            "    raise AssertionError('the device was touched')\n"
+            "torch.cuda._lazy_init = touched\n"
+            "import chip, chip_smoke\n"
+            "chip.Context()\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('ppn_tpu_torch', 'tools')))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, timeout=300,
+                       capture_output=True, text=True,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def test_chip_report_keeps_the_worst_and_refuses_a_field_set_twice():
+    """The report keeps the larger of two records' worst ulp and error; any
+    other field that two records, or a record and the kernel table's fixed
+    fields, both set raises instead of one hiding the other."""
+    import chip
+
+    post = {"name": "ppn_post_kernel"}
+    records = {"a": {"kernels": {"ppn_post_kernel": {"max_ulp": 3,
+                                                     "max_abs_err": 0.5}}},
+               "b": {"kernels": {"ppn_post_kernel": {"max_ulp": 1,
+                                                     "max_abs_err": 0.75,
+                                                     "launches": 7}}}}
+    (row,) = [r for r in chip.kernel_table(records) if r.items() >= post.items()]
+    assert (row["max_ulp"], row["max_abs_err"], row["launches"]) == (3, 0.75, 7)
+    records["c"] = {"kernels": {"ppn_post_kernel": {"launches": 9}}}
+    with pytest.raises(KeyError, match="launches"):
+        chip.kernel_table(records)
+    fixed = {"a": {"kernels": {"ppn_post_kernel": {"decisions_equal": False}}}}
+    with pytest.raises(KeyError, match="decisions_equal"):
+        chip.kernel_table(fixed)
+    lines = {"a": {"ninth_slice": {"export": 1}},
+             "b": {"ninth_slice": {"pretrained": 2}}}
+    assert chip.report_line(lines, "ninth_slice") == {"export": 1,
+                                                      "pretrained": 2}
+    lines["c"] = {"ninth_slice": {"export": 3}}
+    with pytest.raises(KeyError, match="export"):
+        chip.report_line(lines, "ninth_slice")
+
+
+def test_chip_smoke_reports_the_phases_before_a_failure(monkeypatch, capsys):
+    """A phase that raises ends the run with the report of the phases
+    before it, without the ``ok`` line."""
+    import importlib.util
+    import json
+
+    import chip.context
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def measured(ctx):
+        return {"ninth_slice": {"export": {"bytes": 5}},
+                "kernels": {"ppn_warp_kernel": {"launches": 3}}}
+
+    def failing(ctx):
+        raise AssertionError("phase 2 failed")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(chip.context, "smi_line", lambda: "a card, 1 W")
+    monkeypatch.setattr(mod, "PHASES", [(1, "measured", measured),
+                                        (2, "failing", failing)])
+    with pytest.raises(AssertionError, match="phase 2 failed"):
+        mod.main()
+    lines = capsys.readouterr().out.splitlines()
+    assert {"ninth_slice": {"export": {"bytes": 5}}} in [
+        json.loads(x) for x in lines if x.startswith("{")]
+    (kernels,) = [json.loads(x)["kernels"] for x in lines
+                  if x.startswith('{"kernels"')]
+    assert [r["launches"] for r in kernels
+            if r["name"] == "ppn_warp_kernel"] == [3]
+    assert "a card, 1 W" in lines
+    assert not any('"ok"' in x for x in lines)
+
+
 def test_ninth_slice_is_scanned_and_defaults_to_cuda(no_cuda, tmp_path):
     """The data-parallel, export, profiling, debug and weight-import modules
     are among the files scanned for imports; their entry points run on
@@ -169,6 +269,10 @@ def test_ninth_slice_is_scanned_and_defaults_to_cuda(no_cuda, tmp_path):
                  "utils/profiling.py", "utils/debug.py",
                  "utils/torch_import.py"):
         assert os.path.join("ppn_tpu_torch", name) in scanned
+    # the card check's phases, which drive these modules on the GPU
+    for name in ("__init__.py", "context.py", "timing.py", "kernels.py",
+                 "inference.py", "training.py", "paths.py"):
+        assert os.path.join("chip", name) in scanned
     from ppn_tpu_torch.configs import get_config
     from ppn_tpu_torch.nn.model import PoseProposalNet
     from ppn_tpu_torch.parallel import make_mesh

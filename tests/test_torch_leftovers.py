@@ -51,7 +51,8 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ["mpii_r18_384", "mpii_r50_384", "coco_r18_384",
            "coco_r18_384_crowded", "mpii_r18_224_fast", "tiny_test"]
-# chip_smoke.py phase 27 holds the card's model to this count
+# chip_smoke.py phase 27 (chip/paths.py) holds the card's model to this
+# count
 MPII_R18_384_PARAMS = 14_254_006
 
 
@@ -289,13 +290,9 @@ def test_num_params_is_the_jax_count(name):
 
 
 def test_chip_smoke_pins_the_same_count():
-    import importlib.util
+    from chip import paths
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    assert mod.MPII_R18_384_PARAMS == MPII_R18_384_PARAMS
+    assert paths.MPII_R18_384_PARAMS == MPII_R18_384_PARAMS
 
 
 # ---- the five public helpers ------------------------------------------------

@@ -6,15 +6,15 @@ NVIDIA GPU, for the checkout given by --tree (default: this one).
 ``ppn_tpu_torch`` is imported from DIR, so two checkouts (a parent commit's
 package unpacked with ``git archive`` into a directory ``.gitignore``
 lists, and this one) can be timed in turns on one card: parent, change,
-change, parent. The snapshot and ``chip_smoke.py``'s helpers come from this
-checkout.
-The inputs are those of ``chip_smoke.py``:
+change, parent. The snapshot, the timers (``chip/timing.py``) and the warp
+inputs (``chip/kernels.warp_matrices``) come from this checkout, imported
+before DIR goes on the path. The inputs are those of ``chip_smoke.py``:
 
   * ``ppn_post_kernel`` at B=1 and B=128 on the main-path map (the committed
     MPII snapshot's output on seeded uint8 images, phase 6) and on the
     ``normal`` map (phase 3);
   * ``ppn_warp_kernel`` at B=32, 384×384×3 bf16, on 32 synthetic images and
-    the phase-11 matrices (the six unit-test cases, then drawn crops).
+    the phase-17 matrices (the six unit-test cases, then drawn crops).
 
 ``ms`` is a CUDA-event mean over --reps launches replayed from a CUDA
 graph: the kernel and its launch without the host's per-call Python work
@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
-import importlib.util
 import json
 import os
 import sys
@@ -39,15 +38,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _chip_smoke():
-    """This checkout's chip_smoke.py, for its input and timing helpers."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+sys.path.insert(0, ROOT)
 
 
 def main() -> int:
@@ -59,9 +50,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_times: no CUDA device", file=sys.stderr)
         return 2
+    # this checkout's inputs and timers, imported before DIR's package
+    from chip.kernels import warp_matrices
+    from chip.timing import graph_ms, host_us, smi_line, time_ms
+
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
-    cs = _chip_smoke()
     from ppn_tpu_torch.configs import get_config
     from ppn_tpu_torch.data.synthetic import SyntheticPoseDataset
     from ppn_tpu_torch.inference import Predictor
@@ -94,23 +88,23 @@ def main() -> int:
     ds = SyntheticPoseDataset(cfg, size=32, seed=0)
     xw = torch.from_numpy(np.stack([ds[i]["image"] for i in range(32)])).to(
         dev).float().div(255.0).to(torch.bfloat16)
-    mw = cs.warp_matrices(cfg, 32, dev, seed=32)
+    mw = warp_matrices(cfg, 32, dev, seed=32)
     calls["warp_b32_bf16"] = functools.partial(cuda_warp.affine_warp_cuda,
                                                xw, mw)
     # eager times first: a wrapper that cannot be captured (an older one
     # may set a function attribute at every launch) then loses only its
     # graph times
-    eager = {k: cs.time_ms(c, args.reps) for k, c in calls.items()}
-    host = {k: cs.host_us(c, 4 * args.reps) for k, c in calls.items()}
+    eager = {k: time_ms(c, args.reps) for k, c in calls.items()}
+    host = {k: host_us(c, 4 * args.reps) for k, c in calls.items()}
     graph = {}
     for k, c in calls.items():
         try:
-            graph[k] = cs.graph_ms(c, args.reps)
+            graph[k] = graph_ms(c, args.reps)
         except RuntimeError as err:
             graph[k] = None
             print(f"torch_kernel_times: no graph time for {k}: {err}",
                   file=sys.stderr)
-    line = json.dumps({"tree": tree, "card": cs.smi_line(),
+    line = json.dumps({"tree": tree, "card": smi_line(),
                        "reps": args.reps, "ms": graph, "eager_ms": eager,
                        "host_us": host})
     print(line, flush=True)

@@ -20,8 +20,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
-import subprocess
 import sys
 
 import numpy as np
@@ -29,20 +27,6 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-
-
-def _events_ms(fn, reps: int) -> float:
-    """Median device time of `fn` over `reps` single calls."""
-    ms = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
-    return statistics.median(ms)
 
 
 def _category(name: str) -> str:
@@ -69,13 +53,12 @@ def main(argv=None) -> int:
         print("torch_predict_profile: no CUDA device", file=sys.stderr)
         return 2
 
+    from chip.timing import events_ms, smi_line
     from ppn_tpu_torch.configs import get_config
     from ppn_tpu_torch.inference import Predictor
     from ppn_tpu_torch.ops.cuda_post import postprocess_batch_cuda
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("mpii_r18_384")
@@ -92,13 +75,13 @@ def main(argv=None) -> int:
         fm = pred.model(x)
         ppl = postprocess_batch_cuda(m, fm)
         stages = {
-            "h2d": _events_ms(lambda: torch.from_numpy(images).to(dev),
+            "h2d": events_ms(lambda: torch.from_numpy(images).to(dev),
+                             args.reps),
+            "forward": events_ms(lambda: pred.model(x), args.reps),
+            "post": events_ms(lambda: postprocess_batch_cuda(m, fm),
                               args.reps),
-            "forward": _events_ms(lambda: pred.model(x), args.reps),
-            "post": _events_ms(lambda: postprocess_batch_cuda(m, fm),
-                               args.reps),
-            "d2h": _events_ms(lambda: [t.cpu() for t in ppl], args.reps),
-            "predict": _events_ms(lambda: pred.predict(images), args.reps),
+            "d2h": events_ms(lambda: [t.cpu() for t in ppl], args.reps),
+            "predict": events_ms(lambda: pred.predict(images), args.reps),
         }
     stages["sum_of_stages"] = sum(v for k, v in stages.items()
                                   if k != "predict")

@@ -4,7 +4,8 @@ Runs, through each tool's ``main`` at its default iterations:
   * tools/torch_bwd_split.py at B = 32, 64, 128 with ``--batch-norm`` on
     ResNet-18 (``mpii_r18_384``), ResNet-34 (``mpii_r18_384`` with
     ``model.backbone = "resnet34"``, set through
-    ``chip_smoke.replacing_config``) and ResNet-50 (``mpii_r50_384``);
+    ``ppn_tpu_torch.testing.replacing_config``) and ResNet-50
+    (``mpii_r50_384``);
   * tools/torch_train_split.py on ``mpii_r18_384`` at B = 32 and 128;
   * tools/torch_fwd_split.py on ``mpii_r18_384`` at B = 128.
 
@@ -39,9 +40,9 @@ def main(argv=None):
     p.add_argument("--out", required=True, help="JSON lines, appended")
     args = p.parse_args(argv)
 
-    from chip_smoke import replacing_config
     from ppn_tpu_torch import resolve_device
     from ppn_tpu_torch.bench.suite import card
+    from ppn_tpu_torch.testing import replacing_config
     from tools import torch_bwd_split, torch_fwd_split, torch_train_split
 
     line = card(resolve_device())           # a card or an error
